@@ -1,0 +1,21 @@
+"""metamdbg_tpu_torch — the PyTorch/CUDA port of metamdbg_tpu.
+
+A second package beside `metamdbg_tpu` (the JAX reference, which does not
+change). It runs the same `asm` pipeline and writes the same on-disk
+artifacts byte for byte. The port is built one stage at a time: stages it
+computes itself run on an explicit torch `device`, with every kernel of
+the JAX package rewritten by hand for NVIDIA Hopper; stages not yet ported
+run the JAX package's host code through `bridge.py`, the only module that
+imports `metamdbg_tpu`. Nothing here imports jax.
+
+Layout:
+    constants.py  method constants (copied from the JAX package)
+    utils/        stats, murmur64 in int64 bit patterns, the exact u64 cut
+    io/           record formats, native fastq decoder binding
+    sketch/       read selection: RLE, tile packing, filters, palindromes
+    kernels/      CUDA kernels (csrc/), their plain torch versions, nvcc build
+    pipeline/     the `asm` orchestrator
+    bridge.py     the unported stages, run through the JAX package
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,126 @@
+"""The stages the port has not ported yet, run through the JAX package.
+
+This is the only module of the port that imports `metamdbg_tpu`. Each
+function runs one stage through the JAX package's host code, imported
+lazily inside the call, with METAMDBG_TPU_HOST_ONLY=1 set for the duration
+of that call only (an environment write that outlived the call would leak
+into whatever else shares the process) and no device mesh. The host path
+never imports jax; `_host_only` raises if a bridged call did, because the
+machine with the GPU has no JAX at all.
+
+Each entry names the ROADMAP.md Queue 1 item whose slice deletes it. When
+the last entry is gone, so is this file.
+"""
+
+import contextlib
+import dataclasses
+import os
+import sys
+
+_HOST_ONLY = "METAMDBG_TPU_HOST_ONLY"
+
+
+@contextlib.contextmanager
+def _host_only():
+    had_jax = "jax" in sys.modules
+    old = os.environ.get(_HOST_ONLY)
+    os.environ[_HOST_ONLY] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(_HOST_ONLY, None)
+        else:
+            os.environ[_HOST_ONLY] = old
+    if not had_jax and "jax" in sys.modules:
+        raise RuntimeError("a bridged stage imported jax; the JAX package's "
+                           "host path must run without it")
+
+
+def _params(params):
+    """The port's Parameters as the JAX package's (same fields)."""
+    from metamdbg_tpu.io import records
+    return records.Parameters(**dataclasses.asdict(params))
+
+
+# ROADMAP Queue 1 item 3 (first and second graph pass + kernel K2)
+def run_graph_first_pass(tmp_dir: str, k: int, min_abundance: int):
+    with _host_only():
+        from metamdbg_tpu.graph import stage
+        stage.run_graph_first_pass(tmp_dir, k, min_abundance, mesh=None)
+
+
+# ROADMAP Queue 1 item 3
+def run_graph_second_pass(tmp_dir: str, k: int, params):
+    with _host_only():
+        from metamdbg_tpu.graph import stage
+        stage.run_graph_second_pass(tmp_dir, k, _params(params))
+
+
+# ROADMAP Queue 1 item 5 (multi-k ladder)
+def run_graph_multiplex_pass(tmp_dir: str, k: int, params):
+    with _host_only():
+        from metamdbg_tpu.graph import multiplex
+        multiplex.run_graph_multiplex_pass(tmp_dir, k, _params(params))
+
+
+# ROADMAP Queue 1 item 4 (simplification and contigs)
+def run_contig_stage(tmp_dir: str, params, max_bubble_length: int,
+                     max_tip_length: int, gen_graph: bool):
+    with _host_only():
+        from metamdbg_tpu.graph import contigs
+        contigs.run_contig_stage(tmp_dir, _params(params), max_bubble_length,
+                                 max_tip_length, gen_graph=gen_graph)
+
+
+# ROADMAP Queue 1 item 4
+def run_to_minspace(tmp_dir: str, nodepath_file: str, output_file: str,
+                    nodes_file: str, params):
+    with _host_only():
+        from metamdbg_tpu.graph import contigs
+        contigs.run_to_minspace(tmp_dir, nodepath_file, output_file,
+                                nodes_file, _params(params))
+
+
+# ROADMAP Queue 1 item 6 (post-processing)
+def run_derep_small(tmp_dir: str, params, first_k: int, last_k: int):
+    with _host_only():
+        from metamdbg_tpu.basespace import postprocess
+        postprocess.run_derep_small(tmp_dir, _params(params), first_k, last_k)
+
+
+# ROADMAP Queue 1 item 6
+def run_remove_overlaps(tmp_dir: str, params):
+    with _host_only():
+        from metamdbg_tpu.basespace import postprocess
+        postprocess.run_remove_overlaps(tmp_dir, _params(params))
+
+
+# ROADMAP Queue 1 item 6
+def run_remove_repeats(tmp_dir: str, params):
+    with _host_only():
+        from metamdbg_tpu.basespace import postprocess
+        postprocess.run_remove_repeats(tmp_dir, _params(params))
+
+
+# ROADMAP Queue 1 item 7 (toBasespace + kernel K3)
+def run_to_basespace(tmp_dir: str, read_paths, output_contig_file: str,
+                     params, min_contig_length: int,
+                     min_contig_coverage: float, repetitive, n_threads: int):
+    with _host_only():
+        from metamdbg_tpu.basespace import reconstruct
+        reconstruct.run_to_basespace(
+            tmp_dir, read_paths, output_contig_file, _params(params),
+            min_contig_length, min_contig_coverage, repetitive,
+            n_threads=n_threads)
+
+
+# ROADMAP Queue 1 item 8 (ONT correction + kernel K4)
+def run_read_correction(tmp_dir: str, params, min_identity: float,
+                        min_overlap_length: int, n_threads: int):
+    with _host_only():
+        from metamdbg_tpu.correction import stage
+        stage.run_read_correction(tmp_dir, _params(params),
+                                  min_identity=min_identity,
+                                  min_overlap_length=min_overlap_length,
+                                  n_threads=n_threads, mesh=None)

@@ -1,0 +1,159 @@
+"""The port end to end, against the JAX package on the same reads.
+
+The port runs in a subprocess whose `jax` and `jaxlib` imports are blocked
+(a sys.meta_path finder installed by a `-c` launcher), as on the machine
+with the GPU, which has no JAX. Contigs must be byte-identical to the JAX
+package's own run: the decompressed FASTA, and the gzip stream apart from
+its header's write time.
+"""
+
+import gzip
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+import datagen
+from metamdbg_tpu.__main__ import main as jax_main
+from metamdbg_tpu_torch import bridge
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_LAUNCHER = """
+import importlib.abc, sys
+class _BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(name + " is blocked in this process")
+        return None
+sys.meta_path.insert(0, _BlockJax())
+from metamdbg_tpu_torch.__main__ import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def run_port(args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", _BLOCKED_LAUNCHER, *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def assert_same_contigs(a: str, b: str):
+    ra, rb = open(a, "rb").read(), open(b, "rb").read()
+    assert gzip.decompress(ra) == gzip.decompress(rb)
+    # bytes 4-7 of a gzip header hold the write time
+    assert ra[:4] + ra[8:] == rb[:4] + rb[8:]
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The JAX package's own asm on the tests/test_e2e.py:34 input, with
+    its tmp kept so that the port can resume from it."""
+    d = tmp_path_factory.mktemp("e2e")
+    fq = str(d / "reads.fastq.gz")
+    datagen.make_test_fastq(fq, genome_len=80_000, coverage=20,
+                            mean_length=8000, error_rate=0.002, seed=9)
+    out = str(d / "jax")
+    os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
+    try:
+        jax_main(["asm", "--out-dir", out, "--in-hifi", fq])
+    finally:
+        os.environ.pop("METAMDBG_TPU_KEEP_TMP", None)
+    return fq, out
+
+
+def test_port_asm_matches_jax_package(jax_run, tmp_path):
+    """(a) A fresh port run, jax blocked, gives the JAX package's contigs;
+    read selection ran in the port, every later stage through the bridge."""
+    import json
+
+    fq, jout = jax_run
+    out = str(tmp_path / "port")
+    proc = run_port(["asm", "--out-dir", out, "--in-hifi", fq,
+                     "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                        os.path.join(out, "contigs.fasta.gz"))
+    for name in ("read_data_init.txt", "read_stats.txt"):
+        assert open(os.path.join(jout, "tmp", name), "rb").read() == \
+            open(os.path.join(out, "tmp", name), "rb").read(), name
+    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+    assert prov["device"] == "cpu"
+    assert prov["stages"]["readSelection"] == "port:cpu"
+    assert prov["stages"]["toBasespace"] == "bridge:host"
+    assert prov["sketch_kernel"]["tile_batches"] >= 1
+    assert prov["sketch_kernel"]["launches"] == 0
+
+
+def test_port_resumes_jax_package_run(jax_run, tmp_path):
+    """(b) A run written by the JAX package, its final checkpoint removed,
+    is resumed by the port to the same contigs: the on-disk state is
+    shared."""
+    fq, jout = jax_run
+    out = str(tmp_path / "resumed")
+    shutil.copytree(jout, out)
+    os.remove(os.path.join(out, "contigs.fasta.gz"))
+    os.remove(os.path.join(out, "tmp", "checkpoints",
+                           "toBasespace.checkpoint"))
+    proc = run_port(["asm", "--out-dir", out, "--in-hifi", fq,
+                     "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                        os.path.join(out, "contigs.fasta.gz"))
+    track = open(os.path.join(out, "tmp", "memoryTrack.txt")).read()
+    # only toBasespace ran again
+    assert track.count("toBasespace") == 2
+    assert track.count("readSelection") == 1
+
+
+def test_device_cuda_without_gpu_fails(tmp_path):
+    """(c) --device cuda on a box with no GPU exits non-zero, clearly."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU")
+    fq = str(tmp_path / "reads.fastq.gz")
+    datagen.make_test_fastq(fq, genome_len=5000, coverage=2,
+                            mean_length=2000, seed=3)
+    proc = run_port(["asm", "--out-dir", str(tmp_path / "out"),
+                     "--in-hifi", fq, "--device", "cuda"], timeout=120)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not os.path.exists(tmp_path / "out" / "tmp" /
+                              "read_data_init.txt")
+
+
+def test_threads_above_one_refused(tmp_path):
+    fq = str(tmp_path / "reads.fastq.gz")
+    datagen.make_test_fastq(fq, genome_len=5000, coverage=2,
+                            mean_length=2000, seed=3)
+    proc = run_port(["asm", "--out-dir", str(tmp_path / "out"),
+                     "--in-hifi", fq, "--device", "cpu", "--threads", "4"],
+                    timeout=120)
+    assert proc.returncode != 0
+    assert "ROADMAP.md Queue 3" in proc.stderr
+
+
+def test_bridge_scopes_host_only(monkeypatch):
+    """METAMDBG_TPU_HOST_ONLY is set only inside a bridged call, and its
+    old value (set or unset) comes back afterwards."""
+    for old in (None, "0"):
+        if old is None:
+            monkeypatch.delenv("METAMDBG_TPU_HOST_ONLY", raising=False)
+        else:
+            monkeypatch.setenv("METAMDBG_TPU_HOST_ONLY", old)
+        with bridge._host_only():
+            assert os.environ["METAMDBG_TPU_HOST_ONLY"] == "1"
+        assert os.environ.get("METAMDBG_TPU_HOST_ONLY") == old
+
+
+def test_bridge_refuses_a_call_that_imports_jax(monkeypatch):
+    monkeypatch.delitem(sys.modules, "jax", raising=False)
+    with pytest.raises(RuntimeError, match="imported jax"):
+        with bridge._host_only():
+            monkeypatch.setitem(sys.modules, "jax", object())
