@@ -5,28 +5,51 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which exits non-zero when it fails:
 1. device: a CUDA GPU must be visible; prints its nvidia-smi name and
    power limit;
-2. build: compiles the sketch kernel (csrc/sketch.cu) with nvcc for
-   sm_90a and prints the build seconds;
+2. build: compiles the sketch kernel (csrc/sketch.cu) and the window hash
+   kernel (csrc/window_hash.cu) with nvcc for sm_90a, one nvcc per source,
+   started together, and prints the build seconds;
 3. kernel: the sketch kernel against its plain torch version on the card at
    the main path's shape, (512, 16384) u8 tiles at l=15 and densities
    0.005 and 0.025, with bad bases, separators and one overflow row; the
    results must be bit-identical (tolerance 0: all outputs are integers).
    Prints the median kernel and plain times (CUDA events, after a warm-up);
+3b. window hash kernel: KW against its plain torch version on the card, on
+   a stream of 4,194,304 u32 minimizers (values < 2^30, with palindromic
+   windows and values near 2^32 - 1 planted), one start per full window,
+   w in {4, 5, 6, 7, 16, 61}, normalize on and off: bit-identical
+   (tolerance 0). Prints the median kernel and plain times at w = 16;
+3c. row counting (K2, torch ops): kernels/count.py on the card against the
+   same function on CPU tensors, on a (2^20, 5) table with repeats: the
+   unique rows and counts must be identical;
 4. end to end: a 4 Mb circular genome at 30x HiFi (tests/datagen.py, seed
    1) through `python -m metamdbg_tpu_torch asm --device cuda --threads 1`'s
-   entry point. The kernel's launch counts are set to 0 just before and
-   read just after; the run must have launched the kernel once per tile
-   batch, ported read selection must have run as port:cuda, and the output
-   must be one circular contig within 2 kb of 4 Mb. Prints stage walls;
+   entry point. The kernels' launch counts are set to 0 just before and
+   read just after; the run must have launched the sketch kernel once per
+   tile batch and the window hash kernel in every createGraph pass; read
+   selection and every k*_createGraph and k*_generateContigs stage must
+   have run as port:cuda, and the output must be one circular contig
+   within 2 kb of 4 Mb. The sha256 of each pass's graph artifacts is
+   recorded as the pass ends. Prints stage walls;
 5. reference: the JAX package's read selection, host-only and with jax
    imports blocked, on the same reads, in a subprocess; read_data_init.txt,
-   read_stats.txt and read_data_corrected.txt must be byte-identical.
+   read_stats.txt and read_data_corrected.txt must be byte-identical;
+6. graph reference: the JAX package's minimizer-space stages, host-only,
+   jax blocked, in a subprocess, pass by pass on a copy of the port's
+   read_data_corrected.txt with the port's per-pass parameters, in the
+   order of pipeline/asm.py (the assembly-graph exports are left out).
+   Every pass's kminmerData_abundance.txt, kminmerData_min.txt (first two
+   passes), unitigGraph.*.bin, filter/unitigs_*.bin, contigs.nodepath,
+   refined abundances, smallContigs_k*.bin and unitig_data.txt
+   (contig_data_init.txt at the last pass) must be byte-identical.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
+import glob
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -43,6 +66,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 L_MIN, DENSITIES = 15, (0.005, 0.025)
 GENOME_LEN = 4_000_000
+KW_STREAM, KW_WIDTHS, KW_TIMED = 4_194_304, (4, 5, 6, 7, 16, 61), 16
+FIRST_K = 4
 
 _BLOCKED_JAX_READ_SELECTION = """
 import importlib.abc, sys
@@ -60,6 +85,39 @@ read_selection.run_read_selection(
                                   density_correction=0.025,
                                   use_homopolymer_compression=True),
     skip_correction=True)
+"""
+
+_BLOCKED_JAX_GRAPH = """
+import importlib.abc, sys
+class _BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(name + " is blocked in this process")
+        return None
+sys.meta_path.insert(0, _BlockJax())
+import json, os
+from metamdbg_tpu.graph import contigs, multiplex, stage
+from metamdbg_tpu.io import records
+from chip_smoke import pass_digests
+work, params_dir = sys.argv[1:3]
+first_k, last_k = int(sys.argv[3]), int(sys.argv[4])
+out = {}
+for k in range(first_k, last_k + 1):
+    p = records.Parameters.load(os.path.join(params_dir, f"k{k}.gz"))
+    p.save(os.path.join(work, "parameters.gz"))
+    if k == first_k:
+        stage.run_graph_first_pass(work, k, 0)
+    elif k == first_k + 1:
+        stage.run_graph_second_pass(work, k, p)
+    else:
+        multiplex.run_graph_multiplex_pass(work, k, p)
+    contigs.run_contig_stage(work, p, 50000, 50000)
+    name = "contig_data_init.txt" if k == last_k else "unitig_data.txt"
+    contigs.run_to_minspace(work, os.path.join(work, "contigs.nodepath"),
+                            os.path.join(work, name),
+                            os.path.join(work, "unitigGraph.nodes.bin"), p)
+    out[k] = pass_digests(work, k, first_k, k == last_k)
+print(json.dumps(out))
 """
 
 
@@ -82,11 +140,19 @@ def device_phase():
 
 def build_phase():
     from metamdbg_tpu_torch.kernels import build, sketch as ksketch
+    from metamdbg_tpu_torch.kernels import window_hash as kw
 
-    t0 = time.perf_counter()
-    path = build.build("sketch", ksketch._SOURCES)
-    dt = time.perf_counter() - t0
-    print(f"build: {os.path.relpath(path, REPO)} in {dt:.2f} s")
+    def timed(name, sources):
+        t0 = time.perf_counter()
+        path = build.build(name, sources)
+        return path, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(timed, "sketch", ksketch._SOURCES),
+                pool.submit(timed, "window_hash", kw._SOURCES)]
+        for job in jobs:
+            path, dt = job.result()
+            print(f"build: {os.path.relpath(path, REPO)} in {dt:.2f} s")
 
 
 def _tiles(n, L, l, seed):
@@ -179,11 +245,105 @@ def kernel_phase(dev):
     return out
 
 
+def _kw_stream(n, seed):
+    """u32 minimizers < 2^30 with values near 2^32 - 1 and palindromic
+    windows of every tested width planted."""
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(0, 1 << 30, size=n, dtype=np.int64)
+    near = rng.integers(0, n, size=n // 100)
+    cat[near] = (1 << 32) - 1 - rng.integers(0, 3, size=near.shape[0])
+    for w in KW_WIDTHS:
+        for s in rng.integers(0, n - w, size=2000):
+            h = w // 2
+            cat[s + w - h:s + w] = cat[s:s + h][::-1].copy()
+    return cat
+
+
+def kw_phase(dev):
+    """KW against its plain version; returns (max_abs_err, kernel ms,
+    plain ms) at w = KW_TIMED, normalize on (the ladder's mode)."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    cat = torch.from_numpy(_kw_stream(KW_STREAM, seed=300)).to(dev)
+    err, times = 0, None
+    for w in KW_WIDTHS:
+        starts = torch.arange(KW_STREAM - w + 1, device=dev)
+        win = cat[starts[:, None] + torch.arange(w, device=dev)]
+        n_pal = int((win == win.flip(1)).all(dim=1).sum())
+        del win
+        for normalize in (True, False):
+            got = kw.hash_windows(cat, starts, w, normalize)
+            torch.cuda.synchronize()
+            want = kw.hash_windows_reference(cat, starts, w, normalize)
+            diff = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+            err = max(err, int(torch.stack([got[0] - want[0],
+                                            got[1] - want[1]]).abs().max()))
+            if diff or err:
+                fail(f"window hash w={w} normalize={normalize}: {diff} "
+                     f"windows differ from the plain version")
+        if w == KW_TIMED:
+            times = (_time_ms(lambda: kw._launch(cat, starts, w, True), 20),
+                     _time_ms(lambda: kw.hash_windows_reference(
+                         cat, starts, w, True), 5))
+        print(f"kernel window_hash w={w}: {starts.numel()} windows "
+              f"({n_pal} palindromes), both modes bit-identical to plain")
+    print(f"kernel window_hash w={KW_TIMED} normalize: kernel "
+          f"{times[0]:.4f} ms, plain torch {times[1]:.4f} ms per "
+          f"{KW_STREAM} windows")
+    return err, times[0], times[1]
+
+
+def count_phase(dev):
+    from metamdbg_tpu_torch.kernels import count as kcount
+
+    rng = np.random.default_rng(301)
+    rows = rng.integers(0, 1 << 32, size=(1 << 20, 5), dtype=np.int64)
+    rows[1::3] = rows[::3][:rows[1::3].shape[0]]
+    rows[rng.random(rows.shape) < 0.1] = (1 << 32) - 1
+    cpu = torch.from_numpy(rows)
+    want = kcount.count_unique_rows(cpu)
+    t0 = time.perf_counter()
+    got = kcount.count_unique_rows(cpu.to(dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not (torch.equal(got[0].cpu(), want[0])
+            and torch.equal(got[1].cpu(), want[1])):
+        fail("row counting on the card differs from the CPU")
+    print(f"row counting (2^20, 5): {want[0].shape[0]} unique rows, "
+          f"identical on the card and the CPU ({dt * 1e3:.1f} ms on the "
+          f"card, first call)")
+
+
+GRAPH_ARTIFACTS = ("kminmerData_abundance.txt", "unitigGraph.nodes.bin",
+                   "unitigGraph.edges.successors.bin",
+                   "unitigGraph.nodes.abundances.bin",
+                   "unitigGraph.stats.bin", "contigs.nodepath",
+                   "unitigGraph.nodes.refined_abundances.bin")
+
+
+def pass_digests(d, k, first_k, final):
+    """sha256 of the graph artifacts a pass leaves in tmp dir `d`."""
+    names = list(GRAPH_ARTIFACTS)
+    names.append("contig_data_init.txt" if final else "unitig_data.txt")
+    names.append(os.path.join("smallContigs", f"smallContigs_k{k}.bin"))
+    if k <= first_k + 1:
+        names.append("kminmerData_min.txt")
+    names += sorted(os.path.relpath(p, d) for p in
+                    glob.glob(os.path.join(d, "filter", "unitigs_*.bin")))
+    out = {}
+    for name in names:
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
 def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import datagen
     from metamdbg_tpu_torch.__main__ import main
     from metamdbg_tpu_torch.kernels import sketch as ksketch
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+    from metamdbg_tpu_torch.pipeline import asm
     from metamdbg_tpu_torch.sketch import batch
 
     fq = os.path.join(work, "reads.fastq.gz")
@@ -195,16 +355,35 @@ def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
           f"({os.path.getsize(fq) / 1e6:.1f} MB gz)")
 
     out = os.path.join(work, "port")
+    params_dir = os.path.join(work, "params")
+    os.makedirs(params_dir)
+    digests = {}
+    snapshot = asm.Pipeline._save_pass_snapshot
+
+    def record_pass(self, k):
+        """Each pass's parameters and artifact digests, as it ends."""
+        shutil.copyfile(os.path.join(self.tmp_dir, "parameters.gz"),
+                        os.path.join(params_dir, f"k{k}.gz"))
+        digests[str(k)] = pass_digests(self.tmp_dir, k, self.first_k,
+                                       k == self.last_k)
+        snapshot(self, k)
+
+    asm.Pipeline._save_pass_snapshot = record_pass
     os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
     ksketch.reset_counts()
+    kw.reset_counts()
     batch.tile_batches = 0
-    t0 = time.perf_counter()
-    rc = main(["asm", "--out-dir", out, "--in-hifi", fq, "--device",
-               dev.type, "--threads", "1"])
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        rc = main(["asm", "--out-dir", out, "--in-hifi", fq, "--device",
+                   dev.type, "--threads", "1"])
+        wall = time.perf_counter() - t0
+    finally:
+        asm.Pipeline._save_pass_snapshot = snapshot
     launches = ksketch.launches
     relaunches = ksketch.overflow_launches
     tile_batches = batch.tile_batches
+    kw_launches = kw.launches
     if rc != 0:
         fail(f"asm returned {rc}")
 
@@ -224,8 +403,23 @@ def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
         fail(f"sketch kernel launched {launches} times ({relaunches} "
              f"relaunches) for {tile_batches} tile batches")
     prov = json.load(open(os.path.join(out, "tmp", "device.json")))
-    if prov["stages"].get("readSelection") != f"port:{dev.type}":
+    port = f"port:{dev.type}"
+    if prov["stages"].get("readSelection") != port:
         fail(f"readSelection ran as {prov['stages'].get('readSelection')}")
+    graph = {n: r for n, r in prov["stages"].items()
+             if n.endswith(("_createGraph", "_generateContigs"))}
+    bad = {n: r for n, r in graph.items() if r != port}
+    by_pass = prov["window_hash_kernel"]["by_stage"]
+    n_pass = sum(n.endswith("_createGraph") for n in graph)
+    if bad or n_pass != len(digests):
+        fail(f"graph stages not run as {port}: {bad}; {n_pass} passes")
+    if sum(by_pass.values()) != kw_launches or dev.type == "cuda" and (
+            len(by_pass) != n_pass or min(by_pass.values()) < 1):
+        fail(f"window hash kernel: {kw_launches} launches, per pass "
+             f"{by_pass}")
+    print(f"e2e: {n_pass} passes, k*_createGraph and k*_generateContigs "
+          f"all {port}; window hash kernel launches {kw_launches} "
+          f"({min(by_pass.values())}-{max(by_pass.values())} per pass)")
 
     headers, lengths = [], []
     with gzip.open(os.path.join(out, "contigs.fasta.gz"), "rt") as f:
@@ -240,7 +434,7 @@ def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
     if len(lengths) != 1 or "circular=yes" not in headers[0] or \
             abs(lengths[0] - genome_len) > 2000:
         fail(f"expected one circular contig within 2 kb of {genome_len}")
-    return fq, out, launches, wall
+    return fq, out, (launches, kw_launches), wall, params_dir, digests
 
 
 def reference_phase(work, fq, out):
@@ -261,15 +455,48 @@ def reference_phase(work, fq, out):
         print(f"reference: {name} byte-identical ({len(a)} bytes)")
 
 
+def graph_reference_phase(work, out, params_dir, digests):
+    ref = os.path.join(work, "jax_graph")
+    for sub in ("filter", "smallContigs"):
+        os.makedirs(os.path.join(ref, sub))
+    shutil.copyfile(os.path.join(out, "tmp", "read_data_corrected.txt"),
+                    os.path.join(ref, "read_data_corrected.txt"))
+    ks = sorted(int(k) for k in digests)
+    env = dict(os.environ, METAMDBG_TPU_HOST_ONLY="1", PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_JAX_GRAPH, ref,
+                           params_dir, str(ks[0]), str(ks[-1])], cwd=REPO,
+                          env=env, check=True, capture_output=True,
+                          text=True)
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"graph reference: JAX package k={ks[0]}..{ks[-1]} (host-only, "
+          f"jax blocked) in {time.perf_counter() - t0:.1f} s")
+    if sorted(want) != sorted(digests):
+        fail(f"graph reference ran passes {sorted(want)}")
+    n = 0
+    for k in map(str, ks):
+        if want[k] != digests[k]:
+            diff = sorted(set(want[k].items()) ^ set(digests[k].items()))
+            fail(f"pass k={k}: artifacts differ from the JAX package's: "
+                 f"{[name for name, _ in diff]}")
+        n += len(want[k])
+    print(f"graph reference: {n} artifacts over {len(ks)} passes "
+          f"byte-identical (sha256), first pass, second pass and final "
+          f"pass included")
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
     kern = kernel_phase(dev)
+    kw_err, kw_ms, kw_plain_ms = kw_phase(dev)
+    count_phase(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        fq, out, launches, _ = e2e_phase(work, dev)
+        fq, out, launches, _, params_dir, digests = e2e_phase(work, dev)
         reference_phase(work, fq, out)
+        graph_reference_phase(work, out, params_dir, digests)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -278,9 +505,15 @@ def main():
         "name": "sketch_tiles", "route": "cuda",
         "source": "metamdbg_tpu_torch/csrc/sketch.cu",
         "replaces": "metamdbg_tpu/kernels/sketch_pallas.py:49",
-        "launches": launches, "max_abs_err": max(e for e, _, _ in
-                                                  kern.values()),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "launches": launches[0], "max_abs_err": max(e for e, _, _ in
+                                                     kern.values()),
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "window_hash", "route": "cuda",
+        "source": "metamdbg_tpu_torch/csrc/window_hash.cu",
+        "replaces": "metamdbg_tpu/parallel/count_table.py:29 + "
+                    "native/sketch.cpp:523",
+        "launches": launches[1], "max_abs_err": kw_err,
+        "ms": kw_ms, "plain_ms": kw_plain_ms}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,45 +43,6 @@ def _params(params):
     return records.Parameters(**dataclasses.asdict(params))
 
 
-# ROADMAP Queue 1 item 3 (first and second graph pass + kernel K2)
-def run_graph_first_pass(tmp_dir: str, k: int, min_abundance: int):
-    with _host_only():
-        from metamdbg_tpu.graph import stage
-        stage.run_graph_first_pass(tmp_dir, k, min_abundance, mesh=None)
-
-
-# ROADMAP Queue 1 item 3
-def run_graph_second_pass(tmp_dir: str, k: int, params):
-    with _host_only():
-        from metamdbg_tpu.graph import stage
-        stage.run_graph_second_pass(tmp_dir, k, _params(params))
-
-
-# ROADMAP Queue 1 item 5 (multi-k ladder)
-def run_graph_multiplex_pass(tmp_dir: str, k: int, params):
-    with _host_only():
-        from metamdbg_tpu.graph import multiplex
-        multiplex.run_graph_multiplex_pass(tmp_dir, k, _params(params))
-
-
-# ROADMAP Queue 1 item 4 (simplification and contigs)
-def run_contig_stage(tmp_dir: str, params, max_bubble_length: int,
-                     max_tip_length: int, gen_graph: bool):
-    with _host_only():
-        from metamdbg_tpu.graph import contigs
-        contigs.run_contig_stage(tmp_dir, _params(params), max_bubble_length,
-                                 max_tip_length, gen_graph=gen_graph)
-
-
-# ROADMAP Queue 1 item 4
-def run_to_minspace(tmp_dir: str, nodepath_file: str, output_file: str,
-                    nodes_file: str, params):
-    with _host_only():
-        from metamdbg_tpu.graph import contigs
-        contigs.run_to_minspace(tmp_dir, nodepath_file, output_file,
-                                nodes_file, _params(params))
-
-
 # ROADMAP Queue 1 item 6 (post-processing)
 def run_derep_small(tmp_dir: str, params, first_k: int, last_k: int):
     with _host_only():

@@ -6,12 +6,15 @@ as marker files, parameters.gz per pass, pass_k snapshots for the gfa
 subcommand, tmp cleanup at the end. The on-disk state is the JAX
 package's, so a run of either package resumes the other's.
 
-Read selection runs in the port, on `device`. Every later stage runs
-through bridge.py. Observability: `metaMDBG.log` next to the output,
-per-stage wall-clock and peak RSS in tmp/memoryTrack.txt and tmp/perf.txt,
-and tmp/device.json, rewritten after every stage: the device, the route of
-each stage ("port:<device>" or "bridge:host"), and the sketch kernel's
-launch counts.
+Read selection and the minimizer-space ladder (first pass, second pass,
+every multiplex pass, contigs and toMinspace) run in the port, on
+`device`. ONT read correction and the stages after the ladder run through
+bridge.py.
+Observability: `metaMDBG.log` next to the output, per-stage wall-clock and
+peak RSS in tmp/memoryTrack.txt and tmp/perf.txt, and tmp/device.json,
+rewritten after every stage: the device, the route of each stage
+("port:<device>" or "bridge:host"), the sketch kernel's launch counts, and
+the window hash kernel's launches in all and per createGraph stage.
 """
 
 import contextlib
@@ -28,8 +31,10 @@ import torch
 
 from .. import bridge
 from ..constants import compute_last_k
+from ..graph import contigs, multiplex, stage
 from ..io import native, records
 from ..kernels import sketch as ksketch
+from ..kernels import window_hash
 from ..sketch import batch, read_selection
 
 log = logging.getLogger("metamdbg_tpu_torch")
@@ -105,6 +110,8 @@ class Pipeline:
         self.first_k = 4
         self.last_k = 0
         self.routes: dict = {}
+        self.window_hash_launches: dict = {}
+        self.reads_cache = multiplex.ReadsCache()
 
         for d in ("", "filter", "checkpoints", "smallContigs"):
             os.makedirs(os.path.join(self.tmp_dir, d), exist_ok=True)
@@ -117,8 +124,11 @@ class Pipeline:
     @contextlib.contextmanager
     def _stage(self, name: str, route: str = BRIDGE):
         t0 = time.time()
+        kw0 = window_hash.launches
         yield
         dt = time.time() - t0
+        if name.endswith("_createGraph"):
+            self.window_hash_launches[name] = window_hash.launches - kw0
         rss = peak_rss_gb()
         with open(os.path.join(self.tmp_dir, "memoryTrack.txt"), "a") as f:
             f.write(f"{name}\t{dt:.2f}s\t{rss:.3f}GB\n")
@@ -138,7 +148,10 @@ class Pipeline:
                "sketch_kernel": {
                    "launches": ksketch.launches,
                    "overflow_relaunches": ksketch.overflow_launches,
-                   "tile_batches": batch.tile_batches}}
+                   "tile_batches": batch.tile_batches},
+               "window_hash_kernel": {
+                   "launches": window_hash.launches,
+                   "by_stage": self.window_hash_launches}}
         with open(os.path.join(self.tmp_dir, "device.json"), "w") as f:
             json.dump(doc, f, indent=1)
 
@@ -216,16 +229,20 @@ class Pipeline:
             params = self.make_params(k, prev_k)
             params.save(os.path.join(self.tmp_dir, "parameters.gz"))
 
+            port = f"port:{self.device.type}"
             if not self._done(f"k{k}_createGraph"):
-                with self._stage(f"k{k}_createGraph"):
+                with self._stage(f"k{k}_createGraph", port):
                     if pass_index == 0:
-                        bridge.run_graph_first_pass(self.tmp_dir, k,
-                                                    self.min_abundance)
+                        stage.run_graph_first_pass(self.tmp_dir, k,
+                                                   self.min_abundance,
+                                                   self.device)
                     elif k == self.first_k + 1:
-                        bridge.run_graph_second_pass(self.tmp_dir, k, params)
+                        stage.run_graph_second_pass(self.tmp_dir, k, params,
+                                                    self.device)
                     else:
-                        bridge.run_graph_multiplex_pass(self.tmp_dir, k,
-                                                        params)
+                        multiplex.run_graph_multiplex_pass(
+                            self.tmp_dir, k, params, self.device,
+                            self.reads_cache)
                 self._mark(f"k{k}_createGraph")
 
             # AssemblyPipeline.hpp:492,834: --all-assembly-graph forces a
@@ -233,14 +250,15 @@ class Pipeline:
             gen_graph = pass_index > 0 and (self.all_assembly_graph
                                             or k == self.next_gen_graph_k)
             if not self._done(f"k{k}_generateContigs"):
-                with self._stage(f"k{k}_generateContigs"):
-                    bridge.run_contig_stage(self.tmp_dir, params,
-                                            self.max_bubble_length,
-                                            self.max_tip_length, gen_graph)
+                with self._stage(f"k{k}_generateContigs", port):
+                    contigs.run_contig_stage(self.tmp_dir, params,
+                                             self.max_bubble_length,
+                                             self.max_tip_length,
+                                             gen_graph=gen_graph)
                 self._mark(f"k{k}_generateContigs")
 
             if gen_graph and not self._done(f"k{k}_toMinspaceAssemblyGraph"):
-                bridge.run_to_minspace(
+                contigs.run_to_minspace(
                     self.tmp_dir,
                     os.path.join(self.tmp_dir,
                                  "assembly_graph.gfa.unitigs.nodepath"),
@@ -254,7 +272,7 @@ class Pipeline:
 
             out_name = "contig_data_init.txt" if is_final else "unitig_data.txt"
             if not self._done(f"k{k}_toMinspaceContigs"):
-                bridge.run_to_minspace(
+                contigs.run_to_minspace(
                     self.tmp_dir,
                     os.path.join(self.tmp_dir, "contigs.nodepath"),
                     os.path.join(self.tmp_dir, out_name),

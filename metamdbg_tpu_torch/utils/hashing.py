@@ -1,9 +1,12 @@
-"""MurmurHash3 minimizer selection in torch, on int64 bit patterns.
+"""MurmurHash3 in torch, on int64 bit patterns: the minimizer selection
+hash and the 128-bit k-min-mer identity hash.
 
 The minimizer test of the reference (src/utils/kmer/Kmer.hpp:1421,1434) is
 ``double(MurmurHash3_x64_128(key, 8, seed=42).low64) < double(float(d)) *
-double(2^64 - 1)``. CPU torch has no unsigned 64-bit shifts or compares, so
-a u64 lives here as the int64 with the same bits:
+double(2^64 - 1)``; a k-min-mer's identity is MurmurHash3_x64_128 of its
+u32 minimizers, seed 0 (src/Commons.hpp:956-969). CPU torch has no
+unsigned 64-bit shifts or compares, so a u64 lives here as the int64 with
+the same bits:
 
 - multiply and add wrap in int64 exactly as in uint64;
 - a logical right shift is an arithmetic shift with the sign bits masked
@@ -11,7 +14,8 @@ a u64 lives here as the int64 with the same bits:
 - an unsigned compare flips the sign bit of both sides first (`u64_lt`).
 
 The same functions run on CUDA tensors; they are the plain versions the
-sketch kernel (csrc/sketch.cu) is held against.
+sketch kernel (csrc/sketch.cu) and the window hash kernel
+(csrc/window_hash.cu) are held against.
 """
 
 import torch
@@ -63,6 +67,55 @@ def murmur64_u64key(keys: torch.Tensor, seed: int = 42) -> torch.Tensor:
     h1 = h1 + h2
     h2 = h1 + h2
     return fmix64(h1) + fmix64(h2)
+
+
+def _murmur_k1(k1: torch.Tensor) -> torch.Tensor:
+    return rotl(k1 * _C1, 31) * _C2
+
+
+def _murmur_k2(k2: torch.Tensor) -> torch.Tensor:
+    return rotl(k2 * _C2, 33) * _C1
+
+
+def murmur128_u32rows(rows: torch.Tensor, seed: int = 0):
+    """MurmurHash3_x64_128_original over rows of u32 values, each row hashed
+    as its 4*k little-endian bytes (KmerVec::hash128, src/Commons.hpp:956-969).
+
+    `rows` is (N, k) (or (k,)) holding u32 values in any integer dtype; the
+    result is (h1, h2), int64 bit patterns of the two u64 halves. The twin
+    of metamdbg_tpu/utils/hashing.py:murmur128_u32rows, including its tail
+    order for k % 4 == 3 (k2 takes the third tail word before k1 takes the
+    first two).
+    """
+    if rows.dim() == 1:
+        rows = rows[None, :]
+    r = rows.to(torch.int64) & 0xFFFFFFFF
+    n, k = r.shape
+    h1 = torch.full((n,), as_i64(seed), dtype=torch.int64, device=r.device)
+    h2 = h1.clone()
+    for b in range(k // 4):
+        j = 4 * b
+        h1 = h1 ^ _murmur_k1(r[:, j] | (r[:, j + 1] << 32))
+        h1 = (rotl(h1, 27) + h2) * 5 + 0x52DCE729
+        h2 = h2 ^ _murmur_k2(r[:, j + 2] | (r[:, j + 3] << 32))
+        h2 = (rotl(h2, 31) + h1) * 5 + 0x38495AB5
+    base = 4 * (k // 4)
+    rem = k % 4
+    if rem == 3:
+        h2 = h2 ^ _murmur_k2(r[:, base + 2])
+    if rem >= 1:
+        k1 = r[:, base]
+        if rem >= 2:
+            k1 = k1 | (r[:, base + 1] << 32)
+        h1 = h1 ^ _murmur_k1(k1)
+    h1 = h1 ^ (4 * k)
+    h2 = h2 ^ (4 * k)
+    h1 = h1 + h2
+    h2 = h2 + h1
+    h1 = fmix64(h1)
+    h2 = fmix64(h2)
+    h1 = h1 + h2
+    return h1, h2 + h1
 
 
 def u64_lt(x: torch.Tensor, t: int) -> torch.Tensor:

@@ -69,7 +69,8 @@ def jax_run(tmp_path_factory):
 
 def test_port_asm_matches_jax_package(jax_run, tmp_path):
     """(a) A fresh port run, jax blocked, gives the JAX package's contigs;
-    read selection ran in the port, every later stage through the bridge."""
+    read selection and the whole minimizer-space ladder ran in the port,
+    the later stages through the bridge, which has no graph entry left."""
     import json
 
     fq, jout = jax_run
@@ -86,8 +87,18 @@ def test_port_asm_matches_jax_package(jax_run, tmp_path):
     assert prov["device"] == "cpu"
     assert prov["stages"]["readSelection"] == "port:cpu"
     assert prov["stages"]["toBasespace"] == "bridge:host"
+    graph_stages = [n for n in prov["stages"]
+                    if n.endswith(("_createGraph", "_generateContigs"))]
+    assert len(graph_stages) > 20
+    for name in graph_stages:
+        assert prov["stages"][name] == "port:cpu", name
     assert prov["sketch_kernel"]["tile_batches"] >= 1
     assert prov["sketch_kernel"]["launches"] == 0
+    assert prov["window_hash_kernel"]["launches"] == 0
+    for name in ("run_graph_first_pass", "run_graph_second_pass",
+                 "run_graph_multiplex_pass", "run_contig_stage",
+                 "run_to_minspace"):
+        assert not hasattr(bridge, name), name
 
 
 def test_port_resumes_jax_package_run(jax_run, tmp_path):
@@ -109,6 +120,42 @@ def test_port_resumes_jax_package_run(jax_run, tmp_path):
     # only toBasespace ran again
     assert track.count("toBasespace") == 2
     assert track.count("readSelection") == 1
+
+
+def test_port_resumes_mid_ladder(jax_run, tmp_path, monkeypatch):
+    """(b2) A JAX-package run cut at the start of pass k=8 (every
+    checkpoint from k8_createGraph on is missing) is resumed by the port,
+    which runs the rest of the ladder itself, to the same contigs."""
+    from metamdbg_tpu.graph import multiplex as jmultiplex
+
+    fq, jout = jax_run
+    out = str(tmp_path / "cut")
+    real = jmultiplex.run_graph_multiplex_pass
+
+    class Cut(Exception):
+        pass
+
+    def cut_at_k8(tmp_dir, k, params):
+        if k == 8:
+            raise Cut("cut at k8_createGraph")
+        return real(tmp_dir, k, params)
+
+    monkeypatch.setattr(jmultiplex, "run_graph_multiplex_pass", cut_at_k8)
+    monkeypatch.setenv("METAMDBG_TPU_KEEP_TMP", "1")
+    with pytest.raises(Cut):
+        jax_main(["asm", "--out-dir", out, "--in-hifi", fq])
+    ckpts = os.listdir(os.path.join(out, "tmp", "checkpoints"))
+    assert "k7_toMinspaceContigs.checkpoint" in ckpts
+    assert not any(c.startswith("k8_") for c in ckpts)
+
+    proc = run_port(["asm", "--out-dir", out, "--in-hifi", fq,
+                     "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                        os.path.join(out, "contigs.fasta.gz"))
+    track = open(os.path.join(out, "tmp", "memoryTrack.txt")).read()
+    assert track.count("k7_createGraph") == 1
+    assert track.count("k8_createGraph") == 1
 
 
 def test_device_cuda_without_gpu_fails(tmp_path):
