@@ -10,12 +10,16 @@ imports `metamdbg_tpu`. Nothing here imports jax.
 
 Layout:
     constants.py  method constants (copied from the JAX package)
-    utils/        stats, murmur64 in int64 bit patterns, the exact u64 cut
-    io/           record formats, native fastq decoder binding
+    utils/        stats, murmur64/128 in int64 bit patterns, the exact u64 cut
+    io/           record formats, native library bindings, fastq/fasta
     sketch/       read selection: RLE, tile packing, filters, palindromes
+    count/        k-min-mer counting and refined abundances
+    graph/        graph passes, the multi-k ladder, simplification, contigs
+    basespace/    post-processing and toBasespace (mapping, tiling, polish)
     kernels/      CUDA kernels (csrc/), their plain torch versions, nvcc build
     pipeline/     the `asm` orchestrator
-    bridge.py     the unported stages, run through the JAX package
+    bridge.py     the unported stage (ONT read correction), run through the
+                  JAX package
 """
 
 __version__ = "0.1.0"

@@ -43,39 +43,6 @@ def _params(params):
     return records.Parameters(**dataclasses.asdict(params))
 
 
-# ROADMAP Queue 1 item 6 (post-processing)
-def run_derep_small(tmp_dir: str, params, first_k: int, last_k: int):
-    with _host_only():
-        from metamdbg_tpu.basespace import postprocess
-        postprocess.run_derep_small(tmp_dir, _params(params), first_k, last_k)
-
-
-# ROADMAP Queue 1 item 6
-def run_remove_overlaps(tmp_dir: str, params):
-    with _host_only():
-        from metamdbg_tpu.basespace import postprocess
-        postprocess.run_remove_overlaps(tmp_dir, _params(params))
-
-
-# ROADMAP Queue 1 item 6
-def run_remove_repeats(tmp_dir: str, params):
-    with _host_only():
-        from metamdbg_tpu.basespace import postprocess
-        postprocess.run_remove_repeats(tmp_dir, _params(params))
-
-
-# ROADMAP Queue 1 item 7 (toBasespace + kernel K3)
-def run_to_basespace(tmp_dir: str, read_paths, output_contig_file: str,
-                     params, min_contig_length: int,
-                     min_contig_coverage: float, repetitive, n_threads: int):
-    with _host_only():
-        from metamdbg_tpu.basespace import reconstruct
-        reconstruct.run_to_basespace(
-            tmp_dir, read_paths, output_contig_file, _params(params),
-            min_contig_length, min_contig_coverage, repetitive,
-            n_threads=n_threads)
-
-
 # ROADMAP Queue 1 item 8 (ONT correction + kernel K4)
 def run_read_correction(tmp_dir: str, params, min_identity: float,
                         min_overlap_length: int, n_threads: int):

@@ -2,10 +2,13 @@
 
 Reads come in file order across one or more inputs, as the reference's
 kseq parser gives them (src/Commons.hpp:5732-5850). Headers are not
-decoded: read selection only uses index, sequence and quality.
+decoded: every consumer only uses index, sequence and quality. Output:
+`write_fasta` (contigs.fasta.gz) and `open_maybe_gzip`, copies of
+metamdbg_tpu/io/fastq.py's.
 """
 
 import dataclasses
+import gzip
 import queue
 import threading
 
@@ -70,3 +73,25 @@ def iter_reads(paths, max_reads: int | None = None):
     finally:
         stop.set()
         t.join()
+
+
+def open_maybe_gzip(path: str, mode: str = "rb"):
+    if path.endswith(".gz"):
+        return gzip.open(path, mode, compresslevel=1)
+    return open(path, mode)
+
+
+def write_fasta(path: str, records, gzipped: bool | None = None):
+    """records: iterable of (header, sequence-str-or-bytes)."""
+    if gzipped is None:
+        gzipped = path.endswith(".gz")
+    # level 1 like the reference's bgzf "w1" (ToBasespace2.hpp:456)
+    opener = (lambda p, m: gzip.open(p, m, compresslevel=1)) if gzipped \
+        else open
+    with opener(path, "wb") as f:
+        for header, seq in records:
+            if isinstance(seq, str):
+                seq = seq.encode()
+            f.write(b">" + header.encode() + b"\n")
+            for i in range(0, len(seq), 80):
+                f.write(seq[i:i + 80] + b"\n")

@@ -6,15 +6,18 @@ as marker files, parameters.gz per pass, pass_k snapshots for the gfa
 subcommand, tmp cleanup at the end. The on-disk state is the JAX
 package's, so a run of either package resumes the other's.
 
-Read selection and the minimizer-space ladder (first pass, second pass,
-every multiplex pass, contigs and toMinspace) run in the port, on
-`device`. ONT read correction and the stages after the ladder run through
-bridge.py.
+Read selection, the minimizer-space ladder (first pass, second pass,
+every multiplex pass, contigs and toMinspace), post-processing (derep,
+overlaps, repeats) and toBasespace run in the port, on `device`, with the
+native host libraries on `n_threads` threads; nothing forks. ONT read
+correction runs through bridge.py.
 Observability: `metaMDBG.log` next to the output, per-stage wall-clock and
 peak RSS in tmp/memoryTrack.txt and tmp/perf.txt, and tmp/device.json,
 rewritten after every stage: the device, the route of each stage
-("port:<device>" or "bridge:host"), the sketch kernel's launch counts, and
-the window hash kernel's launches in all and per createGraph stage.
+("port:<device>" or "bridge:host"), and for each kernel (sketch, window
+hash, chain) its launches in all and per stage (a stage that launched a
+kernel no time has no entry for it); the sketch kernel's also counts its
+overflow relaunches and the tile batches.
 """
 
 import contextlib
@@ -30,9 +33,11 @@ import numpy as np
 import torch
 
 from .. import bridge
+from ..basespace import postprocess, reconstruct
 from ..constants import compute_last_k
 from ..graph import contigs, multiplex, stage
 from ..io import native, records
+from ..kernels import chain as kchain
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
@@ -73,7 +78,7 @@ class Pipeline:
                  density_correction: float = 0.025,
                  min_contig_length: int = 50, min_contig_coverage: float = 1.0,
                  skip_correction: bool = False,
-                 all_assembly_graph: bool = False):
+                 all_assembly_graph: bool = False, n_threads: int = 1):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda: torch.cuda.is_available() is "
@@ -81,7 +86,6 @@ class Pipeline:
                                "cpu to run the plain torch versions")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
-        # the bridged stages load the same native/ libraries
         native.build_all()
         self.out_dir = out_dir
         self.tmp_dir = os.path.join(out_dir, "tmp")
@@ -98,10 +102,7 @@ class Pipeline:
         self.min_contig_length = max(50, min_contig_length)
         self.min_contig_coverage = max(1.0, min_contig_coverage)
         self.all_assembly_graph = all_assembly_graph
-        # toBasespace and correction run through the bridge with one
-        # thread: the JAX package's fork workers hang after OpenMP has
-        # started (ROADMAP Queue 3)
-        self.n_threads = 1
+        self.n_threads = max(1, n_threads)
         self.use_hpc = platform == "hifi"
         self.skip_correction = skip_correction or platform == "hifi"
         # platform presets (AssemblyPipeline.hpp:292-325)
@@ -111,6 +112,8 @@ class Pipeline:
         self.last_k = 0
         self.routes: dict = {}
         self.window_hash_launches: dict = {}
+        self.sketch_launches: dict = {}
+        self.chain_launches: dict = {}
         self.reads_cache = multiplex.ReadsCache()
 
         for d in ("", "filter", "checkpoints", "smallContigs"):
@@ -124,11 +127,15 @@ class Pipeline:
     @contextlib.contextmanager
     def _stage(self, name: str, route: str = BRIDGE):
         t0 = time.time()
-        kw0 = window_hash.launches
+        kernels = ((self.sketch_launches, ksketch),
+                   (self.window_hash_launches, window_hash),
+                   (self.chain_launches, kchain))
+        before = [k.launches for _, k in kernels]
         yield
         dt = time.time() - t0
-        if name.endswith("_createGraph"):
-            self.window_hash_launches[name] = window_hash.launches - kw0
+        for (counts, k), n0 in zip(kernels, before):
+            if k.launches > n0:
+                counts[name] = k.launches - n0
         rss = peak_rss_gb()
         with open(os.path.join(self.tmp_dir, "memoryTrack.txt"), "a") as f:
             f.write(f"{name}\t{dt:.2f}s\t{rss:.3f}GB\n")
@@ -148,10 +155,14 @@ class Pipeline:
                "sketch_kernel": {
                    "launches": ksketch.launches,
                    "overflow_relaunches": ksketch.overflow_launches,
-                   "tile_batches": batch.tile_batches},
+                   "tile_batches": batch.tile_batches,
+                   "by_stage": self.sketch_launches},
                "window_hash_kernel": {
                    "launches": window_hash.launches,
-                   "by_stage": self.window_hash_launches}}
+                   "by_stage": self.window_hash_launches},
+               "chain_kernel": {
+                   "launches": kchain.launches,
+                   "by_stage": self.chain_launches}}
         with open(os.path.join(self.tmp_dir, "device.json"), "w") as f:
             json.dump(doc, f, indent=1)
 
@@ -347,35 +358,35 @@ class Pipeline:
             os.remove(src)
 
     def _run_final_stages(self, params):
+        port = f"port:{self.device.type}"
         log.info("Derep small contigs")
         if not self._done("derepSmallContigs"):
-            with self._stage("derepSmallContigs"):
-                bridge.run_derep_small(self.tmp_dir, params, self.first_k,
-                                       self.last_k)
+            with self._stage("derepSmallContigs", port):
+                postprocess.run_derep_small(self.tmp_dir, params,
+                                            self.first_k, self.last_k)
             self._mark("derepSmallContigs")
 
         log.info("Removing overlaps and duplication")
         if not self._done("removeOverlaps"):
-            with self._stage("removeOverlaps"):
-                bridge.run_remove_overlaps(self.tmp_dir, params)
+            with self._stage("removeOverlaps", port):
+                postprocess.run_remove_overlaps(self.tmp_dir, params,
+                                                self.device)
             self._mark("removeOverlaps")
 
         if not self._done("removeRepeats"):
-            with self._stage("removeRepeats"):
-                bridge.run_remove_repeats(self.tmp_dir, params)
+            with self._stage("removeRepeats", port):
+                postprocess.run_remove_repeats(self.tmp_dir, params,
+                                               self.device)
             self._mark("removeRepeats")
 
         log.info("Constructing base-space contigs")
         if not self._done("toBasespace"):
-            repetitive = records.load_repetitive_minimizers(
-                os.path.join(self.tmp_dir, "repetitiveMinimizers.bin"))
-            repetitive = np.sort(repetitive)
-            with self._stage("toBasespace"):
-                bridge.run_to_basespace(
+            with self._stage("toBasespace", port):
+                reconstruct.run_to_basespace(
                     self.tmp_dir, self.read_paths,
                     os.path.join(self.out_dir, "contigs.fasta.gz"), params,
-                    self.min_contig_length, self.min_contig_coverage,
-                    repetitive if repetitive.size else None, self.n_threads)
+                    self.device, self.min_contig_length,
+                    self.min_contig_coverage, self.n_threads)
             self._mark("toBasespace")
 
     def _log_final_summary(self, run_seconds: float):

@@ -2,12 +2,15 @@
 
 The port runs in a subprocess whose `jax` and `jaxlib` imports are blocked
 (a sys.meta_path finder installed by a `-c` launcher), as on the machine
-with the GPU, which has no JAX. Contigs must be byte-identical to the JAX
-package's own run: the decompressed FASTA, and the gzip stream apart from
-its header's write time.
+with the GPU, which has no JAX; for HiFi, which runs no bridged stage, the
+JAX package (`metamdbg_tpu`) is refused too. The launcher also makes
+`os.fork` raise: the port forks nothing. Contigs must be byte-identical to
+the JAX package's own run: the decompressed FASTA, and the gzip stream
+apart from its header's write time.
 """
 
 import gzip
+import json
 import os
 import shutil
 import subprocess
@@ -23,24 +26,36 @@ from metamdbg_tpu_torch import bridge
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# argv[1]: the top-level packages to refuse, comma-separated
 _BLOCKED_LAUNCHER = """
-import importlib.abc, sys
-class _BlockJax(importlib.abc.MetaPathFinder):
+import importlib.abc, os, sys
+BLOCKED = tuple(sys.argv.pop(1).split(","))
+class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(name + " is blocked in this process")
         return None
-sys.meta_path.insert(0, _BlockJax())
+sys.meta_path.insert(0, _Block())
+def _no_fork():
+    raise RuntimeError("the port forked")
+os.fork = _no_fork
 from metamdbg_tpu_torch.__main__ import main
 sys.exit(main(sys.argv[1:]))
 """
+JAX_AND_PACKAGE = ("jax", "jaxlib", "metamdbg_tpu")
 
 
-def run_port(args, timeout=300):
+def run_port(args, timeout=300, blocked=JAX_AND_PACKAGE):
     env = dict(os.environ, PYTHONPATH=REPO)
-    return subprocess.run([sys.executable, "-c", _BLOCKED_LAUNCHER, *args],
+    return subprocess.run([sys.executable, "-c", _BLOCKED_LAUNCHER,
+                           ",".join(blocked), *args],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)
+
+
+def read_device_json(out):
+    with open(os.path.join(out, "tmp", "device.json")) as f:
+        return json.load(f)
 
 
 def assert_same_contigs(a: str, b: str):
@@ -68,11 +83,9 @@ def jax_run(tmp_path_factory):
 
 
 def test_port_asm_matches_jax_package(jax_run, tmp_path):
-    """(a) A fresh port run, jax blocked, gives the JAX package's contigs;
-    read selection and the whole minimizer-space ladder ran in the port,
-    the later stages through the bridge, which has no graph entry left."""
-    import json
-
+    """(a) A fresh port run with jax and the JAX package refused gives the
+    JAX package's contigs: every stage, from read selection to toBasespace,
+    ran in the port, and the bridge keeps only ONT read correction."""
     fq, jout = jax_run
     out = str(tmp_path / "port")
     proc = run_port(["asm", "--out-dir", out, "--in-hifi", fq,
@@ -83,22 +96,27 @@ def test_port_asm_matches_jax_package(jax_run, tmp_path):
     for name in ("read_data_init.txt", "read_stats.txt"):
         assert open(os.path.join(jout, "tmp", name), "rb").read() == \
             open(os.path.join(out, "tmp", name), "rb").read(), name
-    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+    prov = read_device_json(out)
     assert prov["device"] == "cpu"
-    assert prov["stages"]["readSelection"] == "port:cpu"
-    assert prov["stages"]["toBasespace"] == "bridge:host"
-    graph_stages = [n for n in prov["stages"]
+    stages = prov["stages"]
+    for name in ("readSelection", "derepSmallContigs", "removeOverlaps",
+                 "removeRepeats", "toBasespace"):
+        assert stages[name] == "port:cpu", name
+    graph_stages = [n for n in stages
                     if n.endswith(("_createGraph", "_generateContigs"))]
     assert len(graph_stages) > 20
-    for name in graph_stages:
-        assert prov["stages"][name] == "port:cpu", name
+    assert set(stages.values()) == {"port:cpu"}
     assert prov["sketch_kernel"]["tile_batches"] >= 1
-    assert prov["sketch_kernel"]["launches"] == 0
-    assert prov["window_hash_kernel"]["launches"] == 0
+    for kernel in ("sketch_kernel", "window_hash_kernel", "chain_kernel"):
+        # the plain versions run on the CPU: no kernel launched
+        assert prov[kernel]["launches"] == 0, kernel
+        assert prov[kernel]["by_stage"] == {}, kernel
     for name in ("run_graph_first_pass", "run_graph_second_pass",
                  "run_graph_multiplex_pass", "run_contig_stage",
-                 "run_to_minspace"):
+                 "run_to_minspace", "run_derep_small", "run_remove_overlaps",
+                 "run_remove_repeats", "run_to_basespace"):
         assert not hasattr(bridge, name), name
+    assert hasattr(bridge, "run_read_correction")
 
 
 def test_port_resumes_jax_package_run(jax_run, tmp_path):
@@ -175,15 +193,58 @@ def test_device_cuda_without_gpu_fails(tmp_path):
                               "read_data_init.txt")
 
 
-def test_threads_above_one_refused(tmp_path):
-    fq = str(tmp_path / "reads.fastq.gz")
-    datagen.make_test_fastq(fq, genome_len=5000, coverage=2,
-                            mean_length=2000, seed=3)
-    proc = run_port(["asm", "--out-dir", str(tmp_path / "out"),
-                     "--in-hifi", fq, "--device", "cpu", "--threads", "4"],
-                    timeout=120)
-    assert proc.returncode != 0
-    assert "ROADMAP.md Queue 3" in proc.stderr
+@pytest.mark.parametrize("platform", ["hifi", "ont"])
+def test_threads_above_one(jax_run, tmp_path, platform):
+    """ROADMAP Queue 3 (fork after OpenMP hung toBasespace at --threads >
+    1). HiFi at --threads 4 runs through toBasespace in the port, with
+    torch's thread pool and the native libraries' OpenMP pools started in
+    its process and `os.fork` refused, within the timeout, to the contigs
+    of --threads 1 (the JAX package's run, which test (a) holds the port's
+    --threads 1 run to). ONT is still refused: its read correction runs
+    through the bridge, whose JAX-package workers fork."""
+    fq, jout = jax_run
+    out = str(tmp_path / "out")
+    proc = run_port(["asm", "--out-dir", out, f"--in-{platform}", fq,
+                     "--device", "cpu", "--threads", "4"], timeout=240)
+    if platform == "ont":
+        assert proc.returncode != 0
+        assert "ROADMAP.md Queue 3" in proc.stderr
+        assert "item 8" in proc.stderr
+        assert not os.path.exists(os.path.join(out, "tmp"))
+        return
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                        os.path.join(out, "contigs.fasta.gz"))
+    assert read_device_json(out)["stages"]["toBasespace"] == "port:cpu"
+
+
+def test_port_modules_import_no_jax_package():
+    """Every module of the port imports with the JAX package (and jax)
+    refused, and none of them loads it: bridge.py imports it only inside
+    a call."""
+    import pkgutil
+
+    import metamdbg_tpu_torch
+
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        metamdbg_tpu_torch.__path__, "metamdbg_tpu_torch."))
+    assert "metamdbg_tpu_torch.kernels.chain" in names
+    script = (
+        "import importlib, importlib.abc, sys\n"
+        "class _Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('metamdbg_tpu', 'jax', 'jaxlib'):\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        "for name in sys.argv[1:]:\n"
+        "    importlib.import_module(name)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('metamdbg_tpu', 'jax')))\n")
+    proc = subprocess.run([sys.executable, "-c", script, *names], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "[]"
 
 
 def test_bridge_scopes_host_only(monkeypatch):
