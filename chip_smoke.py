@@ -6,9 +6,11 @@ Phases, each of which exits non-zero when it fails:
 1. device: a CUDA GPU must be visible; prints its nvidia-smi name and
    power limit;
 2. build: compiles the sketch kernel (csrc/sketch.cu), the window hash
-   kernel (csrc/window_hash.cu) and the chain kernel (csrc/chain_contig.cu)
-   with nvcc for sm_90a, one nvcc per source, started together, and prints
-   the build seconds;
+   kernel (csrc/window_hash.cu), the chain kernel (csrc/chain_contig.cu) and
+   the chain DP kernel (csrc/chain_dp.cu) with nvcc for sm_90a, one nvcc per
+   source, started together, and prints the build seconds. The two inputs
+   of phases 4 and 8 are generated meanwhile, each in a subprocess started
+   before the build;
 3. kernel: the sketch kernel against its plain torch version on the card at
    the main path's shape, (512, 16384) u8 tiles at l=15 and densities
    0.005 and 0.025, with bad bases, separators and one overflow row; the
@@ -27,6 +29,13 @@ Phases, each of which exits non-zero when it fails:
    of 5,000-10,000 (both strands, noise anchors, planted equal-score ties),
    at the asm's d_r_max: scores (as f32 bits), parents and best indexes
    identical (tolerance 0). Prints the median kernel and plain times;
+3e. chain DP kernel (K4): the correction mapper's chain DP against its plain
+   torch version on the card, on 500,000 anchor groups of 3-200 anchors and
+   three of 5,000-10,000 (both strands, noise anchors, planted equal-score
+   ties), at bands 62 (the asm's), 10 and 125: scores (as f32 bits),
+   parents, best indexes, chain lengths, chain scores and chain positions
+   identical (tolerance 0). Prints the median kernel and plain times and
+   the bound at band 62;
 4. end to end: a 4 Mb circular genome at 30x HiFi (tests/datagen.py, seed
    1) through `python -m metamdbg_tpu_torch asm --device cuda --threads 1`'s
    entry point, in this process, where a sys.meta_path finder refuses
@@ -38,10 +47,20 @@ Phases, each of which exits non-zero when it fails:
    have run as port:cuda, and the output must be one circular contig
    within 2 kb of 4 Mb. The sha256 of each pass's graph artifacts is
    recorded as the pass ends. Prints stage walls.
+8. ONT end to end (run after the references of phases 5-7 and the one of
+   phase 9 have started, beside them): the 3-genome ONT metagenome of
+   tests/test_quality_harness.py:103-112 (~86 Mbp) through `asm --in-ont
+   --device cuda --threads 1` in this process, the JAX package refused. The
+   launch counts are set to 0 just before and read just after: every
+   kernel must have launched, K4 and the sketch kernel in readCorrection;
+   every stage, readCorrection included, must have run as port:cuda, and
+   the contigs' total length must lie within 2% of 2.1 Mb. Prints stage
+   walls, the correction checksum, the contigs, and K4's time on the main
+   path's own inputs, launched again after the run.
 
-The three references run the JAX package's stages through
+The references run the JAX package's stages through
 tests/jax_reference.py, host-only with jax imports blocked, each in its own
-subprocess, all three at once:
+subprocess, all four at once:
 5. reference: its read selection on the same reads; read_data_init.txt,
    read_stats.txt and read_data_corrected.txt must be byte-identical;
 6. graph reference: its minimizer-space stages pass by pass on a copy of
@@ -56,11 +75,17 @@ subprocess, all three at once:
    of the port's tmp as the last pass left it. contig_data_init_small.txt
    {,.nooverlaps,.norepeats}, readsVsContigsAlignments.bin and
    contig_data_final.bin must be byte-identical, and contigs.fasta.gz too
-   outside the gzip header's write time (bytes 4-7).
+   outside the gzip header's write time (bytes 4-7);
+9. correction reference: its ONT read selection and read correction, on one
+   thread, on the ONT reads of phase 8: read_data_init.txt, read_stats.txt,
+   repetitiveMinimizers.bin, readAlignmentsLowDensity.bin and
+   read_data_corrected.txt must be byte-identical, and the logged
+   correction checksums equal.
 
 The line before the last two is a JSON object describing each kernel: its
-launches in phase 4, its largest difference from the plain version, its
-time and the plain version's (phase 3, 3b, 3d), and `bound_ms`, the least
+launches in phase 4 (K4's in phase 8), its largest difference from the
+plain version, its time and the plain version's (phase 3, 3b, 3d, 3e), and
+`bound_ms`, the least
 time the card could take for the same work on those inputs (the larger of
 bytes over the memory rate and operations over the peak rate), with what
 bounds it. The line before the last is the card's nvidia-smi name and
@@ -97,6 +122,15 @@ BASESPACE_OUTPUTS = ("contig_data_init_small.txt",
                      "contig_data_init_small.txt.norepeats",
                      "readsVsContigsAlignments.bin", "contig_data_final.bin")
 CHAIN_GROUPS, CHAIN_MAX_LEN, CHAIN_LONG = 16_384, 300, (5_000, 7_500, 10_000)
+CHAIN_DP_GROUPS, CHAIN_DP_MAX_LEN = 500_000, 200
+CHAIN_DP_BANDS, CHAIN_DP_TIMED = (62, 10, 125), 62
+# the ONT metagenome of tests/test_quality_harness.py:103-112 (~86 Mbp)
+ONT_SIZES, ONT_COVERAGES = (500_000, 700_000, 900_000), (15, 35, 60)
+ONT_TOTAL_LEN, ONT_LEN_TOLERANCE = 2_100_000, 0.02
+CORRECTION_OUTPUTS = ("read_data_init.txt", "read_stats.txt",
+                      "repetitiveMinimizers.bin",
+                      "readAlignmentsLowDensity.bin",
+                      "read_data_corrected.txt")
 
 # The least time for a kernel's work: one H100 SXM at its full 700 W
 # (NVIDIA's H100 data sheet), and 64 INT32 lanes per
@@ -106,9 +140,10 @@ F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # Integer operations per item, estimated from each kernel's source: K1 per
 # window (roll, canonical pick, murmur64 finalizer, cut), KW per window
-# at w = 16 (normalization and murmur128 over 16 words), K3 per (anchor,
-# predecessor) test, which also takes 2 f32 operations.
+# at w = 16 (normalization and murmur128 over 16 words), K3 and K4 per
+# (anchor, predecessor) test, which also takes 2 f32 operations.
 K1_INT_OPS, KW_INT_OPS, K3_INT_OPS, K3_F32_OPS = 80, 150, 15, 2
+K4_INT_OPS, K4_F32_OPS = 15, 2
 
 
 class _RefuseJaxPackage(importlib.abc.MetaPathFinder):
@@ -141,6 +176,7 @@ def device_phase():
 
 def build_phase():
     from metamdbg_tpu_torch.kernels import build, chain as kchain
+    from metamdbg_tpu_torch.kernels import chain_dp as kchain_dp
     from metamdbg_tpu_torch.kernels import sketch as ksketch
     from metamdbg_tpu_torch.kernels import window_hash as kw
 
@@ -149,10 +185,11 @@ def build_phase():
         path = build.build(name, sources)
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(timed, "sketch", ksketch._SOURCES),
                 pool.submit(timed, "window_hash", kw._SOURCES),
-                pool.submit(timed, "chain_contig", kchain._SOURCES)]
+                pool.submit(timed, "chain_contig", kchain._SOURCES),
+                pool.submit(timed, "chain_dp", kchain_dp._SOURCES)]
         for job in jobs:
             path, dt = job.result()
             print(f"build: {os.path.relpath(path, REPO)} in {dt:.2f} s")
@@ -375,6 +412,53 @@ def chain_groups(lengths, seed):
             flat[2].astype(np.int32), flat[3].astype(bool), offsets)
 
 
+def chain_dp_groups(lengths, seed):
+    """Anchor groups for the correction chain DP, made with numpy from a
+    seed, all at once: per group a query read of `n` pairs, its pair
+    centres ~200 bp apart (q_pos rises with q_idx), matched collinearly on
+    one strand with +-40 bp of noise (a few anchors on the other strand),
+    15% noise anchors, and in every third group an equal-score tie planted
+    5,000+ bp past the rest (two predecessors at one query position, each
+    starting a chain, and an anchor that both reach with equal gaps).
+    Each group is sorted by (ref, query). Returns ref_pos, q_pos (int64),
+    is_rev (bool), q_idx (int32) and the int64 group offsets."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int64)
+    n_groups = lengths.shape[0]
+    gid = np.repeat(np.arange(n_groups), lengths)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    k = np.arange(gid.shape[0]) - starts[gid]
+    rev_g = rng.random(n_groups) < 0.5
+    shift = rng.integers(0, 20_000, n_groups)
+    span = 200 * lengths + 100
+    noise = rng.random(k.shape[0]) < 0.15
+    q_idx = np.where(noise, rng.integers(0, np.maximum(lengths[gid], 1)), k)
+    q_pos = 200 * q_idx + (q_idx * 7919) % 97
+    ref = np.where(rev_g[gid], span[gid] - q_pos, q_pos) + shift[gid] + \
+        rng.integers(-40, 41, k.shape[0])
+    ref = np.where(noise, shift[gid] + rng.integers(0, span[gid]), ref)
+    is_rev = rev_g[gid] ^ (rng.random(k.shape[0]) < 0.05)
+    # A (r, Q), B (r + 2, Q) and C (r + 4, Q +- 3) on the group's strand:
+    # C's candidates from A and from B are equal; B, the nearer, must win
+    tie = np.flatnonzero(np.arange(n_groups) % 3 == 0)
+    r0 = shift[tie] + span[tie] + 6_000
+    q0 = 200 * lengths[tie] + 50
+    qc = np.where(rev_g[tie], q0 - 3, q0 + 3)
+    gid = np.concatenate([gid, np.repeat(tie, 3)])
+    ref = np.concatenate([ref, np.stack([r0, r0 + 2, r0 + 4], 1).ravel()])
+    q_pos = np.concatenate([q_pos, np.stack([q0, q0, qc], 1).ravel()])
+    q_idx = np.concatenate([q_idx, np.stack(
+        [lengths[tie], lengths[tie], lengths[tie] + 1], 1).ravel()])
+    is_rev = np.concatenate([is_rev, np.repeat(rev_g[tie], 3)])
+    ref = np.clip(ref, 0, None)
+    # one sort: group, then ref, then query (each below 2^21)
+    order = np.argsort((gid << 42) | (ref << 21) | q_pos, kind="stable")
+    offsets = np.zeros(n_groups + 1, np.int64)
+    offsets[1:] = np.cumsum(np.bincount(gid, minlength=n_groups))
+    return (ref[order].astype(np.int64), q_pos[order].astype(np.int64),
+            is_rev[order], q_idx[order].astype(np.int32), offsets)
+
+
 def chain_contig_bound(sizes):
     """bound() of one K3 call on groups of `sizes` anchors."""
     from metamdbg_tpu_torch.kernels.chain import BAND
@@ -433,6 +517,78 @@ def chain_phase(dev):
     return err, k_ms, p_ms, chain_bound
 
 
+def chain_dp_bound(sizes, band):
+    """bound() of one K4 call on groups of `sizes` anchors at `band`."""
+    m = np.asarray(sizes, np.int64)
+    # (anchor, predecessor) tests: min(i, band) for anchor i of its group
+    tests = int(np.where(m <= band + 1, m * (m - 1) // 2,
+                         band * (band + 1) // 2 + (m - 1 - band) * band)
+                .sum())
+    n = int(m.sum())
+    # in: ref, q, q_idx (int32), is_rev (u8), offsets (int64); out: scores,
+    # parents, chain_pos (4 bytes each), best_index, chain_len, chain_score
+    return bound(n * 13 + (m.size + 1) * 8 + n * 12 + m.size * 12,
+                 K4_INT_OPS * tests, K4_F32_OPS * tests)
+
+
+def _k4_inputs(arrays):
+    """chain_dp's arguments as the kernel takes them: int32 positions."""
+    ref, q, rev, q_idx, offsets = arrays
+    return ref.to(torch.int32), q.to(torch.int32), rev, q_idx, offsets
+
+
+def chain_dp_phase(dev):
+    """K4 against its plain version at three bands; returns (max_abs_err,
+    kernel ms, plain ms, bound) at the asm's band."""
+    from metamdbg_tpu_torch.kernels import chain_dp as k4
+
+    rng = np.random.default_rng(500)
+    lengths = np.concatenate([rng.integers(3, CHAIN_DP_MAX_LEN + 1,
+                                           CHAIN_DP_GROUPS), CHAIN_LONG])
+    rng.shuffle(lengths)
+    t0 = time.perf_counter()
+    arrays = chain_dp_groups(lengths, seed=501)
+    gen_s = time.perf_counter() - t0
+    inputs = [torch.from_numpy(a).to(dev) for a in arrays]
+    kin = _k4_inputs(inputs)
+    sizes = np.diff(arrays[4])  # chain_dp_groups adds the planted ties
+    fields = ("scores", "parents", "best_index", "chain_len", "chain_score",
+              "chain_pos")
+    err, result = 0, None
+    for band in CHAIN_DP_BANDS:
+        got = k4.chain_dp(*inputs, band)
+        torch.cuda.synchronize()
+        want = k4.chain_dp_reference(*kin, band)
+        same = torch.equal(got.scores.view(torch.int32),
+                           want.scores.view(torch.int32)) and all(
+            torch.equal(getattr(got, f), getattr(want, f))
+            for f in fields[1:])
+        band_err = max(float((got.scores - want.scores).abs().max()), *(
+            int((getattr(got, f).to(torch.int64)
+                 - getattr(want, f).to(torch.int64)).abs().max())
+            for f in fields[1:]))
+        if not same:
+            fail(f"chain_dp kernel at band {band} differs from the plain "
+                 f"version (max abs err {band_err})")
+        err = max(err, band_err)
+        chains = int((got.chain_score != k4.INT32_MIN).sum())
+        print(f"kernel chain_dp band {band}: {sizes.size} groups, "
+              f"{int(sizes.sum())} anchors (longest {int(sizes.max())}, made "
+              f"in {gen_s:.1f} s): scores' f32 bits, parents, best indexes, "
+              f"chain lengths, chain scores and positions identical to plain "
+              f"({chains} chains of >= 3 anchors, longest "
+              f"{int(got.chain_len.max())})")
+        if band == CHAIN_DP_TIMED:
+            k_ms = _time_ms(lambda: k4._launch(*kin, band), 20)
+            p_ms = _time_ms(lambda: k4.chain_dp_reference(*kin, band), 1)
+            b_ms, b_by = chain_dp_bound(sizes, band)
+            print(f"kernel chain_dp band {band}: kernel {k_ms:.4f} ms, plain "
+                  f"torch {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            result = (k_ms, p_ms, (b_ms, b_by))
+        del got, want
+    return (err, *result)
+
+
 GRAPH_ARTIFACTS = ("kminmerData_abundance.txt", "unitigGraph.nodes.bin",
                    "unitigGraph.edges.successors.bin",
                    "unitigGraph.nodes.abundances.bin",
@@ -456,23 +612,76 @@ def pass_digests(d, k, first_k, final):
     return out
 
 
-def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
+def write_reads(path, kind, genome_len=GENOME_LEN):
+    """The inputs, made with tests/datagen.py from fixed seeds: `hifi`, a
+    circular genome of `genome_len` bp at 30x HiFi; `ont`, the 3-genome ONT
+    metagenome of tests/test_quality_harness.py:103-112 (~86 Mbp)."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import datagen
+
+    if kind == "hifi":
+        datagen.make_test_fastq(path, genome_len=int(genome_len),
+                                coverage=30, mean_length=12000,
+                                error_rate=0.002, seed=1)
+        return
+    genomes = datagen.make_metagenome(n_genomes=3, sizes=list(ONT_SIZES),
+                                      seed=40)
+    datagen.write_fastq(path, datagen.metagenome_reads(
+        genomes, list(ONT_COVERAGES), error_rate=0.01, ins_rate=0.004,
+        del_rate=0.004, mean_quality=20, seed=41))
+
+
+def reads_start(work, kind, genome_len=GENOME_LEN):
+    """Starts write_reads in a subprocess; returns (path, process, start
+    time)."""
+    path = os.path.join(work, f"{kind}.fastq.gz")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.write_reads(*sys.argv[1:])", path, kind,
+         str(genome_len)], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    return path, proc, time.perf_counter()
+
+
+def reads_wait(job, what):
+    path, proc, t0 = job
+    if proc.wait() != 0:
+        fail(f"generating the {what} reads exited {proc.returncode}")
+    print(f"{what}: reads ready {time.perf_counter() - t0:.1f} s after "
+          f"their generation started ({os.path.getsize(path) / 1e6:.1f} MB "
+          f"gz)")
+    return path
+
+
+def _stage_walls(out):
+    """Stage walls from tmp/memoryTrack.txt, the multi-k stages summed;
+    and the peak RSS."""
+    walls, rss = {}, ""
+    for line in open(os.path.join(out, "tmp", "memoryTrack.txt")):
+        name, dt, rss = line.split()
+        name = re.sub(r"^k\d+_", "k*_", name)  # one line per multi-k stage
+        walls[name] = walls.get(name, 0.0) + float(dt.rstrip("s"))
+    return walls, rss
+
+
+def _contigs(out):
+    headers, lengths = [], []
+    with gzip.open(os.path.join(out, "contigs.fasta.gz"), "rt") as f:
+        for line in f:
+            if line.startswith(">"):
+                headers.append(line.strip())
+                lengths.append(0)
+            else:
+                lengths[-1] += len(line.strip())
+    return headers, lengths
+
+
+def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     from metamdbg_tpu_torch.__main__ import main
     from metamdbg_tpu_torch.kernels import chain as kchain
     from metamdbg_tpu_torch.kernels import sketch as ksketch
     from metamdbg_tpu_torch.kernels import window_hash as kw
     from metamdbg_tpu_torch.pipeline import asm
     from metamdbg_tpu_torch.sketch import batch
-
-    fq = os.path.join(work, "reads.fastq.gz")
-    t0 = time.perf_counter()
-    datagen.make_test_fastq(fq, genome_len=genome_len, coverage=coverage,
-                            mean_length=12000, error_rate=0.002, seed=1)
-    print(f"e2e: generated {genome_len} bp x {coverage}x HiFi reads in "
-          f"{time.perf_counter() - t0:.1f} s "
-          f"({os.path.getsize(fq) / 1e6:.1f} MB gz)")
 
     out = os.path.join(work, "port")
     params_dir = os.path.join(work, "params")
@@ -519,11 +728,7 @@ def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
     if rc != 0:
         fail(f"asm returned {rc}")
 
-    walls, rss = {}, ""
-    for line in open(os.path.join(out, "tmp", "memoryTrack.txt")):
-        name, dt, rss = line.split()
-        name = re.sub(r"^k\d+_", "k*_", name)  # one line per multi-k stage
-        walls[name] = walls.get(name, 0.0) + float(dt.rstrip("s"))
+    walls, rss = _stage_walls(out)
     for name, dt in walls.items():
         print(f"e2e stage {name}: {dt:.2f} s")
     print(f"e2e peak RSS {rss}")
@@ -581,21 +786,128 @@ def e2e_phase(work, dev, genome_len=GENOME_LEN, coverage=30):
               f"stage {by_kernel['sketch_kernel']}; chain kernel launches "
               f"{k3_launches}, per stage {by_kernel['chain_kernel']}")
 
-    headers, lengths = [], []
-    with gzip.open(os.path.join(out, "contigs.fasta.gz"), "rt") as f:
-        for line in f:
-            if line.startswith(">"):
-                headers.append(line.strip())
-                lengths.append(0)
-            else:
-                lengths[-1] += len(line.strip())
+    headers, lengths = _contigs(out)
     print(f"e2e: {len(lengths)} contig(s), lengths {lengths}, "
           f"headers {headers[:3]}")
     if len(lengths) != 1 or "circular=yes" not in headers[0] or \
             abs(lengths[0] - genome_len) > 2000:
         fail(f"expected one circular contig within 2 kb of {genome_len}")
-    return fq, out, (launches, kw_launches, k3_launches), wall, \
-        params_dir, digests
+    return out, (launches, kw_launches, k3_launches), wall, params_dir, \
+        digests
+
+
+def ont_phase(work, dev, fq):
+    """Phase 8: the ONT metagenome through `asm --in-ont --device cuda
+    --threads 1` in this process; returns (out dir, K4 launches)."""
+    from metamdbg_tpu_torch.__main__ import main
+    from metamdbg_tpu_torch.kernels import chain as kchain
+    from metamdbg_tpu_torch.kernels import chain_dp as k4
+    from metamdbg_tpu_torch.kernels import sketch as ksketch
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+    from metamdbg_tpu_torch.sketch import batch
+
+    out = os.path.join(work, "ont_port")
+    calls = []
+    chain_dp = k4.chain_dp
+
+    def record_chain_dp(*args):
+        """Keeps the inputs of each K4 call of the main path."""
+        calls.append(args)
+        return chain_dp(*args)
+
+    k4.chain_dp = record_chain_dp
+    os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
+    kernels = {"sketch_kernel": ksketch, "window_hash_kernel": kw,
+               "chain_kernel": kchain, "chain_dp_kernel": k4}
+    for k in kernels.values():
+        k.reset_counts()
+    batch.tile_batches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = main(["asm", "--out-dir", out, "--in-ont", fq, "--device",
+                   dev.type, "--threads", "1"])
+        wall = time.perf_counter() - t0
+    finally:
+        k4.chain_dp = chain_dp
+    launches = {name: k.launches for name, k in kernels.items()}
+    if rc != 0:
+        fail(f"ONT asm returned {rc}")
+
+    walls, rss = _stage_walls(out)
+    for name, dt in walls.items():
+        print(f"ont stage {name}: {dt:.2f} s")
+    print(f"ont peak RSS {rss}")
+    for line in open(os.path.join(out, "metaMDBG.log")):
+        if "orrection checksum" in line or "correction partitions" in line \
+                or "correction timing" in line:
+            print(f"ont log: {line.split(' INFO ', 1)[-1].strip()}")
+    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+    port = f"port:{dev.type}"
+    stages = prov["stages"]
+    bad = {n: r for n, r in stages.items() if r != port}
+    final = ("readSelection", "readCorrection", "derepSmallContigs",
+             "removeOverlaps", "removeRepeats", "toBasespace")
+    if bad or any(n not in stages for n in final):
+        fail(f"ONT stages not run as {port}: {bad}; stages {list(stages)}")
+    for name, total in launches.items():
+        by_stage = prov[name]["by_stage"]
+        if sum(by_stage.values()) != total or prov[name]["launches"] != total:
+            fail(f"ONT {name}: {total} launches, per stage {by_stage}")
+        if dev.type == "cuda" and total < 1:
+            fail(f"ONT: {name} launched no time")
+    correction = {name: prov[name]["by_stage"].get("readCorrection", 0)
+                  for name in kernels}
+    if dev.type == "cuda" and (correction["chain_dp_kernel"] < 1
+                               or correction["sketch_kernel"] < 1):
+        fail(f"ONT readCorrection launched {correction}")
+    print(f"ont: asm wall {wall:.1f} s; every stage {port}; launches "
+          f"{launches}; in readCorrection {correction}")
+    if dev.type == "cuda":
+        for args in calls:
+            kin = _k4_inputs(args[:5])
+            sizes = np.diff(args[4].cpu().numpy())
+            ms = _time_ms(lambda: k4._launch(*kin, args[5]), 20)
+            b = chain_dp_bound(sizes, args[5])
+            print(f"ont chain_dp kernel in readCorrection: {sizes.size} "
+                  f"groups, {int(sizes.sum())} anchors, longest "
+                  f"{int(sizes.max())}, band {args[5]}; again after the "
+                  f"run: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+
+    headers, lengths = _contigs(out)
+    total = sum(lengths)
+    print(f"ont: {len(lengths)} contig(s), total {total} bp, lengths "
+          f"{sorted(lengths, reverse=True)[:12]}, "
+          f"{sum('circular=yes' in h for h in headers)} circular")
+    if abs(total - ONT_TOTAL_LEN) > ONT_LEN_TOLERANCE * ONT_TOTAL_LEN:
+        fail(f"ONT contigs total {total} bp, not within "
+             f"{ONT_LEN_TOLERANCE:.0%} of {ONT_TOTAL_LEN}")
+    return out, launches["chain_dp_kernel"]
+
+
+def correction_reference_start(work, fq):
+    ref = os.path.join(work, "jax_correction")
+    os.makedirs(ref)
+    return ref, _jax_reference(work, "correction", fq, ref)
+
+
+def correction_reference_phase(ref, job, out):
+    stdout, dt = _wait(job, "JAX package ONT read selection and correction")
+    want = json.loads(stdout.strip().splitlines()[-1])["checksum"]
+    print(f"correction reference: JAX package ONT read selection and read "
+          f"correction (host-only, jax blocked, one thread) in {dt:.1f} s")
+    for name in CORRECTION_OUTPUTS:
+        a = open(os.path.join(ref, name), "rb").read()
+        b = open(os.path.join(out, "tmp", name), "rb").read()
+        if a != b:
+            fail(f"ONT {name} differs from the JAX package's")
+        print(f"correction reference: {name} byte-identical ({len(a)} "
+              f"bytes)")
+    got = [int(line.rsplit(" ", 1)[-1]) for line in
+           open(os.path.join(out, "metaMDBG.log"))
+           if "Correction checksum: " in line]
+    if got != [want]:
+        fail(f"correction checksum {got}, the JAX package's {want}")
+    print(f"correction reference: checksum {want} equal")
 
 
 def _jax_reference(work, phase, *args):
@@ -718,22 +1030,32 @@ def main():
     smi = device_phase()
     sys.meta_path.insert(0, _RefuseJaxPackage())
     dev = torch.device("cuda", 0)
-    build_phase()
-    kern = kernel_phase(dev)
-    kw_result = kw_phase(dev)
-    count_phase(dev)
-    chain_result = chain_phase(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     jobs = []
     try:
-        fq, out, launches, _, params_dir, digests = e2e_phase(work, dev)
+        hifi_job = reads_start(work, "hifi")
+        ont_job = reads_start(work, "ont")
+        jobs += [hifi_job[1:], ont_job[1:]]
+        build_phase()
+        kern = kernel_phase(dev)
+        kw_result = kw_phase(dev)
+        count_phase(dev)
+        chain_result = chain_phase(dev)
+        chain_dp_result = chain_dp_phase(dev)
+        fq = reads_wait(hifi_job, "e2e")
+        out, launches, _, params_dir, digests = e2e_phase(work, dev, fq)
         rs_ref, rs_job = read_selection_reference_start(work, fq)
         graph_job = graph_reference_start(work, out, params_dir, digests)
         bs_ref, bs_job = basespace_reference_start(work, fq, out)
-        jobs = [rs_job, graph_job, bs_job]
+        jobs += [rs_job, graph_job, bs_job]
+        ont_fq = reads_wait(ont_job, "ont")
+        corr_ref, corr_job = correction_reference_start(work, ont_fq)
+        jobs.append(corr_job)
+        ont_out, k4_launches = ont_phase(work, dev, ont_fq)
         reference_phase(rs_ref, rs_job, out)
         graph_reference_phase(graph_job, digests)
         basespace_reference_phase(bs_ref, bs_job, out)
+        correction_reference_phase(corr_ref, corr_job, ont_out)
     finally:
         for proc, *_ in jobs:
             if proc.poll() is None:
@@ -753,7 +1075,10 @@ def main():
         _kernel_line("chain_contig",
                      "metamdbg_tpu_torch/csrc/chain_contig.cu",
                      "metamdbg_tpu/kernels/chain_jax.py:131",
-                     launches[2], chain_result)]}))
+                     launches[2], chain_result),
+        _kernel_line("chain_dp", "metamdbg_tpu_torch/csrc/chain_dp.cu",
+                     "metamdbg_tpu/kernels/chain_jax.py:29",
+                     k4_launches, chain_dp_result)]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

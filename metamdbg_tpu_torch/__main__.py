@@ -23,9 +23,8 @@ def main(argv=None):
     asm.add_argument("--in-ont", nargs="+", default=None,
                      help="Nanopore R10.4+ read filename(s)")
     asm.add_argument("--threads", "-t", type=int, default=1,
-                     help="threads of the native host libraries; must be 1 "
-                          "while ONT read correction runs through the "
-                          "bridge (ROADMAP.md Queue 3, item 8)")
+                     help="threads of the native host libraries (OpenMP, "
+                          "where the compiler has it); nothing forks")
     asm.add_argument("--min-read-quality", type=float, default=0.0)
     asm.add_argument("--min-contig-length", type=int, default=50)
     asm.add_argument("--min-contig-coverage", type=float, default=1)
@@ -51,11 +50,6 @@ def main(argv=None):
 
     if bool(args.in_hifi) == bool(args.in_ont):
         parser.error("choose exactly one of --in-hifi / --in-ont")
-    if args.threads > 1 and args.in_ont and not args.skip_correction:
-        parser.error("--threads > 1 is refused for ONT while read "
-                     "correction runs through the bridge: the JAX package's "
-                     "fork workers hang after OpenMP has started (ROADMAP.md "
-                     "Queue 3 and Queue 1 item 8); use --threads 1")
     reads = args.in_hifi or args.in_ont
     missing = [r for r in reads if not os.path.isfile(r)]
     if missing:

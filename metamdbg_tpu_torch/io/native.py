@@ -2,10 +2,9 @@
 
 `native/` sits beside both packages; the port keeps its own bindings to it
 and builds its libraries itself, all of them, before the first stage runs
-(`build_all`): the bridged JAX-package stages load the same files. A
-library is compiled with the flags of native/Makefile when it is missing
-or older than its source, once, under a file lock (parallel test workers
-may all ask at once). Where the compiler has no OpenMP runtime (g++ without
+(`build_all`). A library is compiled with the flags of native/Makefile
+when it is missing or older than its source, once, under a file lock
+(parallel test workers may all ask at once). Where the compiler has no OpenMP runtime (g++ without
 libgomp), it is compiled without -fopenmp: every OpenMP use in native/ is
 guarded by `#ifdef _OPENMP`, so the library is the same code on one
 thread. There is no Python fallback: a library that cannot be built or

@@ -6,18 +6,18 @@ as marker files, parameters.gz per pass, pass_k snapshots for the gfa
 subcommand, tmp cleanup at the end. The on-disk state is the JAX
 package's, so a run of either package resumes the other's.
 
-Read selection, the minimizer-space ladder (first pass, second pass,
-every multiplex pass, contigs and toMinspace), post-processing (derep,
-overlaps, repeats) and toBasespace run in the port, on `device`, with the
-native host libraries on `n_threads` threads; nothing forks. ONT read
-correction runs through bridge.py.
+Every stage runs in the port, on `device`, with the native host
+libraries on `n_threads` threads; nothing forks: read selection, ONT read
+correction, the minimizer-space ladder (first pass, second pass, every
+multiplex pass, contigs and toMinspace), post-processing (derep, overlaps,
+repeats) and toBasespace.
 Observability: `metaMDBG.log` next to the output, per-stage wall-clock and
 peak RSS in tmp/memoryTrack.txt and tmp/perf.txt, and tmp/device.json,
 rewritten after every stage: the device, the route of each stage
-("port:<device>" or "bridge:host"), and for each kernel (sketch, window
-hash, chain) its launches in all and per stage (a stage that launched a
-kernel no time has no entry for it); the sketch kernel's also counts its
-overflow relaunches and the tile batches.
+("port:<device>"), and for each kernel (sketch, window hash, chain, chain
+DP) its launches in all and per stage (a stage that launched a kernel no
+time has no entry for it); the sketch kernel's also counts its overflow
+relaunches and the tile batches.
 """
 
 import contextlib
@@ -32,19 +32,18 @@ import time
 import numpy as np
 import torch
 
-from .. import bridge
 from ..basespace import postprocess, reconstruct
 from ..constants import compute_last_k
+from ..correction import stage as correction
 from ..graph import contigs, multiplex, stage
 from ..io import native, records
 from ..kernels import chain as kchain
+from ..kernels import chain_dp as kchain_dp
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
 
 log = logging.getLogger("metamdbg_tpu_torch")
-
-BRIDGE = "bridge:host"
 
 
 def peak_rss_gb() -> float:
@@ -114,6 +113,7 @@ class Pipeline:
         self.window_hash_launches: dict = {}
         self.sketch_launches: dict = {}
         self.chain_launches: dict = {}
+        self.chain_dp_launches: dict = {}
         self.reads_cache = multiplex.ReadsCache()
 
         for d in ("", "filter", "checkpoints", "smallContigs"):
@@ -125,11 +125,13 @@ class Pipeline:
 
     # -- perf accounting and provenance (src/Commons.hpp:2918-2938) ---------
     @contextlib.contextmanager
-    def _stage(self, name: str, route: str = BRIDGE):
+    def _stage(self, name: str):
+        route = f"port:{self.device.type}"
         t0 = time.time()
         kernels = ((self.sketch_launches, ksketch),
                    (self.window_hash_launches, window_hash),
-                   (self.chain_launches, kchain))
+                   (self.chain_launches, kchain),
+                   (self.chain_dp_launches, kchain_dp))
         before = [k.launches for _, k in kernels]
         yield
         dt = time.time() - t0
@@ -162,7 +164,10 @@ class Pipeline:
                    "by_stage": self.window_hash_launches},
                "chain_kernel": {
                    "launches": kchain.launches,
-                   "by_stage": self.chain_launches}}
+                   "by_stage": self.chain_launches},
+               "chain_dp_kernel": {
+                   "launches": kchain_dp.launches,
+                   "by_stage": self.chain_dp_launches}}
         with open(os.path.join(self.tmp_dir, "device.json"), "w") as f:
             json.dump(doc, f, indent=1)
 
@@ -203,7 +208,7 @@ class Pipeline:
 
         log.info("Converting reads to minimizers")
         if not self._done("convertReadsToMinimizerSpace"):
-            with self._stage("readSelection", f"port:{self.device.type}"):
+            with self._stage("readSelection"):
                 read_selection.run_read_selection(
                     self.read_paths, self.tmp_dir, params, self.device,
                     min_read_quality=self.min_read_quality,
@@ -224,8 +229,8 @@ class Pipeline:
                 params = self.make_params(self.first_k, self.first_k)
                 params.save(os.path.join(self.tmp_dir, "parameters.gz"))
                 with self._stage("readCorrection"):
-                    bridge.run_read_correction(
-                        self.tmp_dir, params,
+                    correction.run_read_correction(
+                        self.tmp_dir, params, self.device,
                         self.read_correction_min_identity,
                         self.read_correction_min_overlap, self.n_threads)
                 self._mark("correctReads")
@@ -240,9 +245,8 @@ class Pipeline:
             params = self.make_params(k, prev_k)
             params.save(os.path.join(self.tmp_dir, "parameters.gz"))
 
-            port = f"port:{self.device.type}"
             if not self._done(f"k{k}_createGraph"):
-                with self._stage(f"k{k}_createGraph", port):
+                with self._stage(f"k{k}_createGraph"):
                     if pass_index == 0:
                         stage.run_graph_first_pass(self.tmp_dir, k,
                                                    self.min_abundance,
@@ -261,7 +265,7 @@ class Pipeline:
             gen_graph = pass_index > 0 and (self.all_assembly_graph
                                             or k == self.next_gen_graph_k)
             if not self._done(f"k{k}_generateContigs"):
-                with self._stage(f"k{k}_generateContigs", port):
+                with self._stage(f"k{k}_generateContigs"):
                     contigs.run_contig_stage(self.tmp_dir, params,
                                              self.max_bubble_length,
                                              self.max_tip_length,
@@ -358,30 +362,29 @@ class Pipeline:
             os.remove(src)
 
     def _run_final_stages(self, params):
-        port = f"port:{self.device.type}"
         log.info("Derep small contigs")
         if not self._done("derepSmallContigs"):
-            with self._stage("derepSmallContigs", port):
+            with self._stage("derepSmallContigs"):
                 postprocess.run_derep_small(self.tmp_dir, params,
                                             self.first_k, self.last_k)
             self._mark("derepSmallContigs")
 
         log.info("Removing overlaps and duplication")
         if not self._done("removeOverlaps"):
-            with self._stage("removeOverlaps", port):
+            with self._stage("removeOverlaps"):
                 postprocess.run_remove_overlaps(self.tmp_dir, params,
                                                 self.device)
             self._mark("removeOverlaps")
 
         if not self._done("removeRepeats"):
-            with self._stage("removeRepeats", port):
+            with self._stage("removeRepeats"):
                 postprocess.run_remove_repeats(self.tmp_dir, params,
                                                self.device)
             self._mark("removeRepeats")
 
         log.info("Constructing base-space contigs")
         if not self._done("toBasespace"):
-            with self._stage("toBasespace", port):
+            with self._stage("toBasespace"):
                 reconstruct.run_to_basespace(
                     self.tmp_dir, self.read_paths,
                     os.path.join(self.out_dir, "contigs.fasta.gz"), params,

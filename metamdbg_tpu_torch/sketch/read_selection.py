@@ -30,10 +30,10 @@ from ..io import fastq, records
 from ..utils.stats import compute_mean_length, compute_n50
 from . import batch, filters, kmers, native_sketch, palindrome, rle
 
-_CHUNK_READS = 4096
+CHUNK_READS = 4096
 
 
-def _chunked(iterable, n: int):
+def chunked(iterable, n: int):
     chunk = []
     for x in iterable:
         chunk.append(x)
@@ -44,7 +44,7 @@ def _chunked(iterable, n: int):
         yield chunk
 
 
-def _sketch_chunk(sketcher, chunk, use_hpc):
+def sketch_chunk(sketcher, chunk, use_hpc):
     """Sketch a chunk of reads. Returns [(mins, pos, dirs, rle_pos)] in
     chunk order. `pos` are k-mer indices in the RLE'd read."""
     rles = [rle.rle_encode(read.seq, use_hpc) for read in chunk]
@@ -73,8 +73,8 @@ def determine_repetitive_minimizers(input_paths, out_path: str, l: int,
     sketcher = batch.BatchSketcher(l, density_correction, None, device)
     reads = fastq.iter_reads(input_paths,
                              max_reads=REPETITIVE_MINIMIZER_MAX_READS)
-    for chunk in _chunked(reads, _CHUNK_READS):
-        for mins, _, _, _ in _sketch_chunk(sketcher, chunk, use_hpc):
+    for chunk in chunked(reads, CHUNK_READS):
+        for mins, _, _, _ in sketch_chunk(sketcher, chunk, use_hpc):
             vals, cnt = np.unique(mins, return_counts=True)
             for v, c in zip(vals.tolist(), cnt.tolist()):
                 counts[v] = counts.get(v, 0) + c
@@ -115,8 +115,8 @@ def run_read_selection(input_paths, out_dir: str, params: records.Parameters,
     empty_u32 = np.zeros(0, np.uint32)
     empty_u8 = np.zeros(0, np.uint8)
     with records.ReadDataWriter(out_path, with_quality=True) as writer:
-        for chunk in _chunked(fastq.iter_reads(input_paths), _CHUNK_READS):
-            sketched = _sketch_chunk(sketcher, chunk, use_hpc)
+        for chunk in chunked(fastq.iter_reads(input_paths), CHUNK_READS):
+            sketched = sketch_chunk(sketcher, chunk, use_hpc)
             complexity, mean_quality = native_sketch.read_filters_batch(
                 [r.seq for r in chunk], [r.qual for r in chunk],
                 COMPLEXITY_WINDOW, COMPLEXITY_STEP, filters._QUAL_TABLE)

@@ -7,6 +7,7 @@ port's own process never imports `metamdbg_tpu`.
     python tests/jax_reference.py read_selection READS OUT_DIR
     python tests/jax_reference.py graph WORK PARAMS_DIR FIRST_K LAST_K
     python tests/jax_reference.py basespace WORK READS OUT_FASTA
+    python tests/jax_reference.py correction READS OUT_DIR
 
 - `read_selection`: read selection (HiFi, the asm defaults) into OUT_DIR.
 - `graph`: the minimizer-space stages pass by pass in WORK, which holds
@@ -18,12 +19,18 @@ port's own process never imports `metamdbg_tpu`.
   last pass's WORK/parameters.gz, on one thread (the JAX package's fork
   workers hang after OpenMP has started, ROADMAP.md Queue 3); writes
   OUT_FASTA.
+- `correction`: ONT read selection (correction not skipped) into OUT_DIR,
+  then read correction on one thread with the parameters the asm gives it
+  (pipeline/asm.py:make_params at the first k); prints one JSON object,
+  {"checksum": the correction checksum}.
 """
 
 import importlib.abc
 import json
 import os
 import sys
+
+import numpy as np
 
 
 class _BlockJax(importlib.abc.MetaPathFinder):
@@ -85,8 +92,38 @@ def basespace(work, fq, out_fasta):
                                  None, n_threads=1)
 
 
+def correction(fq, out):
+    from metamdbg_tpu.constants import compute_last_k
+    from metamdbg_tpu.correction import stage as correction_stage
+    from metamdbg_tpu.io import records
+    from metamdbg_tpu.sketch import read_selection as rs
+
+    with open(os.path.join(out, "input.txt"), "w") as f:
+        f.write(os.path.abspath(fq) + "\n")
+    first_k, density = 4, 0.005
+    params = records.Parameters(minimizer_size=15, density_assembly=density,
+                                density_correction=0.025,
+                                use_homopolymer_compression=False,
+                                data_type=1)
+    stats = rs.run_read_selection([fq], out, params)
+    spacing = 1 / np.float32(density)
+    params = records.Parameters(
+        minimizer_size=15, kminmer_size=first_k, density_assembly=density,
+        kminmer_size_first=first_k, minimizer_spacing_mean=float(spacing),
+        kminmer_length_mean=float(spacing * np.float32(first_k - 1)),
+        kminmer_overlap_mean=float(spacing * np.float32(first_k - 1)
+                                   - spacing),
+        kminmer_size_prev=first_k,
+        kminmer_size_last=compute_last_k(density, stats.n50, first_k, 0),
+        mean_read_length=stats.n50, density_correction=0.025,
+        use_homopolymer_compression=False, data_type=1, snpmer_size=21)
+    checksum = correction_stage.run_read_correction(out, params, 0.96, 1000,
+                                                    n_threads=1)
+    print(json.dumps({"checksum": int(checksum)}))
+
+
 PHASES = {"read_selection": read_selection, "graph": graph,
-          "basespace": basespace}
+          "basespace": basespace, "correction": correction}
 
 
 if __name__ == "__main__":

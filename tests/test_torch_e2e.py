@@ -1,12 +1,11 @@
 """The port end to end, against the JAX package on the same reads.
 
-The port runs in a subprocess whose `jax` and `jaxlib` imports are blocked
-(a sys.meta_path finder installed by a `-c` launcher), as on the machine
-with the GPU, which has no JAX; for HiFi, which runs no bridged stage, the
-JAX package (`metamdbg_tpu`) is refused too. The launcher also makes
-`os.fork` raise: the port forks nothing. Contigs must be byte-identical to
-the JAX package's own run: the decompressed FASTA, and the gzip stream
-apart from its header's write time.
+The port runs in a subprocess whose `jax`, `jaxlib` and `metamdbg_tpu`
+(the JAX package) imports are refused (a sys.meta_path finder installed by
+a `-c` launcher), as on the machine with the GPU, which has no JAX. The
+launcher also makes `os.fork` raise: the port forks nothing. Contigs must
+be byte-identical to the JAX package's own run, for HiFi and for ONT: the
+decompressed FASTA, and the gzip stream apart from its header's write time.
 """
 
 import gzip
@@ -22,7 +21,6 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 import datagen
 from metamdbg_tpu.__main__ import main as jax_main
-from metamdbg_tpu_torch import bridge
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,8 +43,8 @@ sys.exit(main(sys.argv[1:]))
 JAX_AND_PACKAGE = ("jax", "jaxlib", "metamdbg_tpu")
 
 
-def run_port(args, timeout=300, blocked=JAX_AND_PACKAGE):
-    env = dict(os.environ, PYTHONPATH=REPO)
+def run_port(args, timeout=300, blocked=JAX_AND_PACKAGE, env=None):
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     return subprocess.run([sys.executable, "-c", _BLOCKED_LAUNCHER,
                            ",".join(blocked), *args],
                           cwd=REPO, env=env, capture_output=True, text=True,
@@ -82,10 +80,38 @@ def jax_run(tmp_path_factory):
     return fq, out
 
 
+@pytest.fixture(scope="module")
+def jax_ont_run(tmp_path_factory):
+    """The JAX package's own ONT asm (read correction included) on the
+    tests/test_e2e.py:55-62 input, a 70 kb genome at 35x, on its host
+    path (METAMDBG_TPU_HOST_ONLY, as chip_smoke.py's references run it):
+    its XLA routes give the same bytes (tests/test_torch_correction.py
+    compares the port with them) but take twice as long to compile here."""
+    d = tmp_path_factory.mktemp("e2e_ont")
+    fq = str(d / "reads.fastq.gz")
+    genome = datagen.random_genome(70_000, seed=31)
+    datagen.write_fastq(fq, datagen.sample_reads(
+        genome, coverage=35, mean_length=8000, error_rate=0.005,
+        ins_rate=0.0035, del_rate=0.0035, seed=32, mean_quality=22))
+    out = str(d / "jax")
+    env = {"METAMDBG_TPU_KEEP_TMP": "1", "METAMDBG_TPU_HOST_ONLY": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        jax_main(["asm", "--out-dir", out, "--in-ont", fq])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return fq, out
+
+
 def test_port_asm_matches_jax_package(jax_run, tmp_path):
     """(a) A fresh port run with jax and the JAX package refused gives the
     JAX package's contigs: every stage, from read selection to toBasespace,
-    ran in the port, and the bridge keeps only ONT read correction."""
+    ran in the port."""
     fq, jout = jax_run
     out = str(tmp_path / "port")
     proc = run_port(["asm", "--out-dir", out, "--in-hifi", fq,
@@ -107,16 +133,36 @@ def test_port_asm_matches_jax_package(jax_run, tmp_path):
     assert len(graph_stages) > 20
     assert set(stages.values()) == {"port:cpu"}
     assert prov["sketch_kernel"]["tile_batches"] >= 1
-    for kernel in ("sketch_kernel", "window_hash_kernel", "chain_kernel"):
+    for kernel in ("sketch_kernel", "window_hash_kernel", "chain_kernel",
+                   "chain_dp_kernel"):
         # the plain versions run on the CPU: no kernel launched
         assert prov[kernel]["launches"] == 0, kernel
         assert prov[kernel]["by_stage"] == {}, kernel
-    for name in ("run_graph_first_pass", "run_graph_second_pass",
-                 "run_graph_multiplex_pass", "run_contig_stage",
-                 "run_to_minspace", "run_derep_small", "run_remove_overlaps",
-                 "run_remove_repeats", "run_to_basespace"):
-        assert not hasattr(bridge, name), name
-    assert hasattr(bridge, "run_read_correction")
+
+
+def test_port_ont_asm_matches_jax_package(jax_ont_run, tmp_path):
+    """(a') ONT: the port's asm, read correction included, with jax and the
+    JAX package refused and `os.fork` raising, gives the JAX package's
+    contigs; its read selection and correction artifacts are the JAX
+    package's byte for byte (tests/test_torch_correction.py holds the
+    checksums), and every stage ran in the port."""
+    fq, jout = jax_ont_run
+    out = str(tmp_path / "port")
+    proc = run_port(["asm", "--out-dir", out, "--in-ont", fq,
+                     "--device", "cpu", "--threads", "1"],
+                    env={"METAMDBG_TPU_KEEP_TMP": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                        os.path.join(out, "contigs.fasta.gz"))
+    for name in ("read_data_init.txt", "read_stats.txt",
+                 "repetitiveMinimizers.bin", "readAlignmentsLowDensity.bin",
+                 "read_data_corrected.txt"):
+        a = open(os.path.join(jout, "tmp", name), "rb").read()
+        assert len(a) > 0 and a == \
+            open(os.path.join(out, "tmp", name), "rb").read(), name
+    stages = read_device_json(out)["stages"]
+    assert stages["readCorrection"] == "port:cpu"
+    assert set(stages.values()) == {"port:cpu"}
 
 
 def test_port_resumes_jax_package_run(jax_run, tmp_path):
@@ -194,41 +240,39 @@ def test_device_cuda_without_gpu_fails(tmp_path):
 
 
 @pytest.mark.parametrize("platform", ["hifi", "ont"])
-def test_threads_above_one(jax_run, tmp_path, platform):
+def test_threads_above_one(request, tmp_path, platform):
     """ROADMAP Queue 3 (fork after OpenMP hung toBasespace at --threads >
-    1). HiFi at --threads 4 runs through toBasespace in the port, with
-    torch's thread pool and the native libraries' OpenMP pools started in
-    its process and `os.fork` refused, within the timeout, to the contigs
-    of --threads 1 (the JAX package's run, which test (a) holds the port's
-    --threads 1 run to). ONT is still refused: its read correction runs
-    through the bridge, whose JAX-package workers fork."""
-    fq, jout = jax_run
+    1). At --threads 4 the port runs through toBasespace, ONT read
+    correction included, with torch's thread pool and the native
+    libraries' OpenMP pools started in its process and `os.fork` refused,
+    within the timeout, to the contigs of the JAX package's --threads 1
+    run (which tests (a) and (a') hold the port's --threads 1 runs to)."""
+    fq, jout = request.getfixturevalue(
+        "jax_run" if platform == "hifi" else "jax_ont_run")
     out = str(tmp_path / "out")
     proc = run_port(["asm", "--out-dir", out, f"--in-{platform}", fq,
                      "--device", "cpu", "--threads", "4"], timeout=240)
-    if platform == "ont":
-        assert proc.returncode != 0
-        assert "ROADMAP.md Queue 3" in proc.stderr
-        assert "item 8" in proc.stderr
-        assert not os.path.exists(os.path.join(out, "tmp"))
-        return
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
                         os.path.join(out, "contigs.fasta.gz"))
-    assert read_device_json(out)["stages"]["toBasespace"] == "port:cpu"
+    stages = read_device_json(out)["stages"]
+    assert stages["toBasespace"] == "port:cpu"
+    assert stages.get("readCorrection", "port:cpu") == "port:cpu"
+    assert ("readCorrection" in stages) == (platform == "ont")
 
 
 def test_port_modules_import_no_jax_package():
     """Every module of the port imports with the JAX package (and jax)
-    refused, and none of them loads it: bridge.py imports it only inside
-    a call."""
+    refused, and none of them loads it."""
     import pkgutil
 
     import metamdbg_tpu_torch
 
     names = sorted(m.name for m in pkgutil.walk_packages(
         metamdbg_tpu_torch.__path__, "metamdbg_tpu_torch."))
-    assert "metamdbg_tpu_torch.kernels.chain" in names
+    assert "metamdbg_tpu_torch.kernels.chain_dp" in names
+    assert "metamdbg_tpu_torch.correction.stage" in names
+    assert "metamdbg_tpu_torch.bridge" not in names
     script = (
         "import importlib, importlib.abc, sys\n"
         "class _Block(importlib.abc.MetaPathFinder):\n"
@@ -246,22 +290,3 @@ def test_port_modules_import_no_jax_package():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip() == "[]"
 
-
-def test_bridge_scopes_host_only(monkeypatch):
-    """METAMDBG_TPU_HOST_ONLY is set only inside a bridged call, and its
-    old value (set or unset) comes back afterwards."""
-    for old in (None, "0"):
-        if old is None:
-            monkeypatch.delenv("METAMDBG_TPU_HOST_ONLY", raising=False)
-        else:
-            monkeypatch.setenv("METAMDBG_TPU_HOST_ONLY", old)
-        with bridge._host_only():
-            assert os.environ["METAMDBG_TPU_HOST_ONLY"] == "1"
-        assert os.environ.get("METAMDBG_TPU_HOST_ONLY") == old
-
-
-def test_bridge_refuses_a_call_that_imports_jax(monkeypatch):
-    monkeypatch.delitem(sys.modules, "jax", raising=False)
-    with pytest.raises(RuntimeError, match="imported jax"):
-        with bridge._host_only():
-            monkeypatch.setitem(sys.modules, "jax", object())
