@@ -134,27 +134,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(ref_pos, q_pos, q_bp, is_rev, offsets, d_r_max: int):
+def _enqueue(ref_pos, q_pos, q_bp, is_rev, offsets, d_r_max: int, out):
+    """Launches the kernel into `out` = (scores, parents, best_index),
+    allocated by the caller. Does not wait for the card."""
     global launches
     lib = _lib()
     dev = ref_pos.device
     n_groups = offsets.shape[0] - 1
-    scores = torch.empty(ref_pos.shape[0], dtype=torch.float32, device=dev)
-    parents = torch.empty(ref_pos.shape[0], dtype=torch.int32, device=dev)
-    best_index = torch.empty(n_groups, dtype=torch.int32, device=dev)
     rev = is_rev.view(torch.uint8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chain_contig_launch(
             ref_pos.data_ptr(), q_pos.data_ptr(), q_bp.data_ptr(),
             rev.data_ptr(), offsets.data_ptr(), n_groups, d_r_max, W,
-            MAX_GAP, BP_CAP, scores.data_ptr(), parents.data_ptr(),
-            best_index.data_ptr(), stream)
+            MAX_GAP, BP_CAP, *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError("chain kernel launch failed: "
                            + lib.chain_contig_error_string(err).decode())
     launches += 1
-    return scores, parents, best_index
+
+
+def _launch(ref_pos, q_pos, q_bp, is_rev, offsets, d_r_max: int):
+    dev = ref_pos.device
+    n_groups = offsets.shape[0] - 1
+    out = (torch.empty(ref_pos.shape[0], dtype=torch.float32, device=dev),
+           torch.empty(ref_pos.shape[0], dtype=torch.int32, device=dev),
+           torch.empty(n_groups, dtype=torch.int32, device=dev))
+    _enqueue(ref_pos, q_pos, q_bp, is_rev, offsets, d_r_max, out)
+    return out
 
 
 def chain_contig(ref_pos: torch.Tensor, q_pos: torch.Tensor,

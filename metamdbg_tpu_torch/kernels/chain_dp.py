@@ -205,20 +205,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(ref_pos, q_pos, is_rev, q_idx, offsets, band: int) -> ChainResult:
+def _enqueue(ref_pos, q_pos, is_rev, q_idx, offsets, band: int,
+             out: ChainResult):
+    """Launches the kernel into `out`, allocated by the caller. Does not
+    wait for the card."""
     global launches
     lib = _lib()
     dev = ref_pos.device
-    n = ref_pos.shape[0]
     n_groups = offsets.shape[0] - 1
-
-    def empty(size, dtype):
-        return torch.empty(size, dtype=dtype, device=dev)
-
-    out = ChainResult(empty(n, torch.float32), empty(n, torch.int32),
-                      empty(n_groups, torch.int32),
-                      empty(n_groups, torch.int32),
-                      empty(n_groups, torch.int32), empty(n, torch.int32))
     rev = is_rev.view(torch.uint8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -233,6 +227,21 @@ def _launch(ref_pos, q_pos, is_rev, q_idx, offsets, band: int) -> ChainResult:
         raise RuntimeError("chain_dp kernel launch failed: "
                            + lib.chain_dp_error_string(err).decode())
     launches += 1
+
+
+def _launch(ref_pos, q_pos, is_rev, q_idx, offsets, band: int) -> ChainResult:
+    dev = ref_pos.device
+    n = ref_pos.shape[0]
+    n_groups = offsets.shape[0] - 1
+
+    def empty(size, dtype):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    out = ChainResult(empty(n, torch.float32), empty(n, torch.int32),
+                      empty(n_groups, torch.int32),
+                      empty(n_groups, torch.int32),
+                      empty(n_groups, torch.int32), empty(n, torch.int32))
+    _enqueue(ref_pos, q_pos, is_rev, q_idx, offsets, band, out)
     return out
 
 

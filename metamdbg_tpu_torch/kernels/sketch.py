@@ -99,27 +99,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(codes: torch.Tensor, l: int, density: float, cap: int):
+def _enqueue(codes: torch.Tensor, l: int, density: float, cap: int, out):
+    """Launches the kernel into `out` = (positions, values, dirs, counts),
+    allocated by the caller. Does not wait for the card."""
     global launches
     lib = _lib()
     n, L = codes.shape
     dev = codes.device
-    positions = torch.empty((n, cap), dtype=torch.int32, device=dev)
-    values = torch.empty((n, cap), dtype=torch.uint32, device=dev)
-    dirs = torch.empty((n, cap), dtype=torch.uint8, device=dev)
-    counts = torch.empty(n, dtype=torch.int32, device=dev)
     t = hashing._exact_u64_threshold(density)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sketch_tiles_launch(
             codes.data_ptr(), n, L, l, min(t, (1 << 64) - 1),
-            int(t >= 1 << 64), cap, positions.data_ptr(), values.data_ptr(),
-            dirs.data_ptr(), counts.data_ptr(), stream)
+            int(t >= 1 << 64), cap, *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError("sketch kernel launch failed: "
                            + lib.sketch_error_string(err).decode())
     launches += 1
-    return positions, values, dirs, counts
+
+
+def _launch(codes: torch.Tensor, l: int, density: float, cap: int):
+    n = codes.shape[0]
+    dev = codes.device
+    out = (torch.empty((n, cap), dtype=torch.int32, device=dev),
+           torch.empty((n, cap), dtype=torch.uint32, device=dev),
+           torch.empty((n, cap), dtype=torch.uint8, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev))
+    _enqueue(codes, l, density, cap, out)
+    return out
 
 
 def sketch_tiles(codes: torch.Tensor, l: int, density: float,

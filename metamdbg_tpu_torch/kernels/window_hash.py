@@ -16,11 +16,16 @@ native SIMD (native/sketch.cpp:window_hash_batch, row_hash_batch) and in
 XLA (parallel/count_table.py:_window_hash_pairs).
 
 `w` is an int, or a 1-D int64 tensor with one width per start (the
-variable-length unitig sequences of the deterministic order). `launches`
-counts kernel launches; the plain version counts nothing.
+variable-length unitig sequences of the deterministic order). A window
+outside `cat` raises, on either device: the kernel checks each window
+itself and sets a flag word that the wrapper reads after the outputs, the
+one wait for the card per call; the plain version checks with torch ops.
+`launches` counts kernel launches; the plain version counts nothing.
 """
 
 import ctypes
+import itertools
+import random
 
 import torch
 
@@ -86,40 +91,73 @@ def hash_windows_reference(cat: torch.Tensor, starts: torch.Tensor, w,
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("window_hash", _SOURCES)
-    vp = ctypes.c_void_p
-    lib.window_hash_launch.argtypes = [vp, vp, vp, ctypes.c_longlong,
-                                       ctypes.c_int, ctypes.c_int, vp, vp, vp]
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.window_hash_launch.argtypes = [vp, i64, vp, vp, i64, ctypes.c_int,
+                                       ctypes.c_int, vp, i64, vp]
     lib.window_hash_launch.restype = ctypes.c_int
     lib.window_hash_error_string.argtypes = [ctypes.c_int]
     lib.window_hash_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(cat: torch.Tensor, starts: torch.Tensor, w, normalize: bool):
+def _enqueue(cat, starts, w, normalize: bool, out: torch.Tensor,
+             token: int = 0):
+    """Launches the kernel into `out`, (2n + 1,) int64: h1, h2, then the
+    flag word, which the kernel sets to token + 1 if a window reaches
+    outside the stream and to token + 2 if a width is below 1, and leaves
+    alone otherwise. Does not wait for the card."""
     global launches
     lib = _lib()
     n = starts.shape[0]
-    h1 = torch.empty(n, dtype=torch.int64, device=cat.device)
-    h2 = torch.empty_like(h1)
     widths = None if isinstance(w, int) else w
     with torch.cuda.device(cat.device):
         stream = torch.cuda.current_stream(cat.device).cuda_stream
         err = lib.window_hash_launch(
-            cat.data_ptr(), starts.data_ptr(),
+            cat.data_ptr(), cat.numel(), starts.data_ptr(),
             None if widths is None else widths.data_ptr(), n,
-            w if widths is None else 0, int(normalize), h1.data_ptr(),
-            h2.data_ptr(), stream)
+            w if widths is None else 0, int(normalize), out.data_ptr(),
+            token, stream)
     if err != 0:
         raise RuntimeError("window hash kernel launch failed: "
                            + lib.window_hash_error_string(err).decode())
     launches += 1
-    return h1, h2
+
+
+# One token per launch: the flag word of a fresh output holds whatever the
+# allocator left there, which is a token + 1 or + 2 of this launch only if
+# this launch wrote it (the tokens are distinct and spaced by 4).
+_tokens = itertools.count(4 * random.getrandbits(48) + 4, 4)
+
+
+def _launch(cat: torch.Tensor, starts: torch.Tensor, w, normalize: bool):
+    n = starts.shape[0]
+    out = torch.empty(2 * n + 1, dtype=torch.int64, device=cat.device)
+    token = next(_tokens)
+    _enqueue(cat, starts, w, normalize, out, token)
+    flag = int(out[2 * n]) - token  # the one wait for the card
+    if flag == 2:
+        raise ValueError("window widths must be >= 1")
+    if flag == 1:
+        raise ValueError(f"windows reach outside the stream of "
+                         f"{cat.numel()}")
+    return out[:n], out[n:2 * n]
+
+
+def _check_range(cat, starts, w):
+    """The range check of the plain version; the kernel makes its own."""
+    if not isinstance(w, int) and w.numel() and int(w.min()) < 1:
+        raise ValueError("window widths must be >= 1")
+    lo, hi = torch.stack([starts.min(), (starts + w).max()]).tolist()
+    if lo < 0 or hi > cat.numel():
+        raise ValueError(f"windows reach outside the stream: [{lo}, {hi}) "
+                         f"of {cat.numel()}")
 
 
 def hash_windows(cat: torch.Tensor, starts: torch.Tensor, w,
                  normalize: bool):
     """(h1, h2) of the window of width `w` at each of `starts` in `cat`, on
-    the tensors' device."""
+    the tensors' device. A window outside `cat`, or a width below 1,
+    raises ValueError."""
     for name, t in (("cat", cat), ("starts", starts)):
         if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-d int64 tensor, "
@@ -129,22 +167,16 @@ def hash_windows(cat: torch.Tensor, starts: torch.Tensor, w,
     if isinstance(w, int):
         if w < 1:
             raise ValueError(f"window width must be >= 1, got {w}")
-    else:
-        if (w.dtype != torch.int64 or w.shape != starts.shape
-                or not w.is_contiguous() or w.device != cat.device):
-            raise ValueError("per-window widths must be a contiguous int64 "
-                             "tensor shaped like starts, on its device")
-        if w.numel() and int(w.min()) < 1:
-            raise ValueError("window widths must be >= 1")
+    elif (w.dtype != torch.int64 or w.shape != starts.shape
+          or not w.is_contiguous() or w.device != cat.device):
+        raise ValueError("per-window widths must be a contiguous int64 "
+                         "tensor shaped like starts, on its device")
     if starts.numel() == 0:
         return starts.clone(), starts.clone()
-    lo, hi = torch.stack([starts.min(), (starts + w).max()]).tolist()
-    if lo < 0 or hi > cat.numel():
-        raise ValueError(f"windows reach outside the stream: [{lo}, {hi}) "
-                         f"of {cat.numel()}")
     if cat.device.type == "cuda":
         return _launch(cat, starts, w, normalize)
     if cat.device.type == "cpu":
+        _check_range(cat, starts, w)
         return hash_windows_reference(cat, starts, w, normalize)
     raise ValueError(f"no window hash kernel for device {cat.device}")
 

@@ -18,6 +18,8 @@ sketch kernel (csrc/sketch.cu) and the window hash kernel
 (csrc/window_hash.cu) are held against.
 """
 
+import functools
+
 import torch
 
 _SIGN = -(1 << 63)
@@ -126,10 +128,12 @@ def u64_lt(x: torch.Tensor, t: int) -> torch.Tensor:
     return (x ^ _SIGN) < (as_i64(t) ^ _SIGN)
 
 
+@functools.lru_cache(maxsize=None)
 def _exact_u64_threshold(density: float) -> int:
     """Smallest u64 t such that for all u64 h < t: double(h) < bound, and for
     all h >= t: double(h) >= bound — i.e. the integer cut making
-    ``h < t`` equivalent to ``double(h) < bound``.
+    ``h < t`` equivalent to ``double(h) < bound``. Cached: the 64-step
+    search costs ~0.1 ms of Python, once per density.
     """
     import numpy as np
 

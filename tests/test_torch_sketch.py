@@ -50,20 +50,34 @@ def _jax_compact(codes, l, density, cap):
             ("positions", "values", "directions", "counts")]
 
 
-@pytest.mark.parametrize("density", [0.005, 0.025])
+# the kernel's layout: each thread owns 16 consecutive windows, each block
+# of a row's cluster 2,048
+THREAD_SPAN, BLOCK_SEGMENT = 16, 2048
+
+
+@pytest.mark.parametrize("density", [0.005, 0.025, 0.1])
 def test_reference_matches_xla_compact(density):
     """(a) The plain version equals sketch_batch_compact_packed (pack_codes
-    input, no row trim) on a (16, 16384) tile, column for column."""
+    input, no row trim) on a (16, 16384) tile, column for column, at the
+    main path's three densities (read selection, the correction re-sketch,
+    toBasespace's overlaps). Row 3 holds only separators."""
     l, L = 15, 16384
     codes = _tiles(16, L, seed=21)
+    codes[3] = 4
     cap = ksketch.compact_cap(L - l + 1, density)
     want = _jax_compact(codes, l, density, cap)
     got = ksketch.sketch_tiles_reference(torch.from_numpy(codes), l, density,
                                          cap)
-    assert want[3].sum() > 0
+    assert want[3].sum() > 0 and want[3][3] == 0
     for name, g, w in zip(("positions", "values", "directions", "counts"),
                           got, want):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    if density == 0.1:
+        # selections on both sides of thread-span and block-segment edges
+        pos = np.concatenate([want[0][r, :min(want[3][r], cap)]
+                              for r in range(16)])
+        for span in (THREAD_SPAN, BLOCK_SEGMENT):
+            assert (pos % span == 0).any() and (pos % span == span - 1).any()
 
 
 def test_reference_even_l_palindromes():
@@ -182,11 +196,13 @@ def test_cpu_route_counts_no_launch():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("l,density", [(15, 0.005), (15, 0.025), (16, 0.05)])
+@pytest.mark.parametrize("l,density", [(15, 0.005), (15, 0.025), (16, 0.05),
+                                       (15, 0.1), (13, 0.1)])
 def test_cuda_kernel_matches_reference(l, density):
     """(d) The CUDA kernel against the plain version on the card, with bad
-    bases, separators and one overflow row: bit-identical on every
-    selected window and count."""
+    bases, separators, a row of separators only and one overflow row:
+    bit-identical on every selected window and count. l = 15 runs the
+    kernel's compile-time l, 13 and 16 its run-time l."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
@@ -195,6 +211,7 @@ def test_cuda_kernel_matches_reference(l, density):
     codes = _tiles(64, L, seed=28, l=l)
     cap = ksketch.compact_cap(nk, density)
     codes[5] = _tandem_row(L, l, density, cap, seed=29)
+    codes[9] = 4
     dev = torch.from_numpy(codes).cuda()
     res = ksketch.sketch_tiles(dev, l, density, cap)
     torch.cuda.synchronize()

@@ -21,6 +21,10 @@ from metamdbg_tpu_torch.kernels import window_hash as kw
 from metamdbg_tpu_torch.utils import hashing
 
 WIDTHS = list(range(2, 21)) + [61]
+# wider than any span the kernel stages in shared memory at once for a
+# block of windows (512 windows + w - 1 words of 4096) when w >= 3586, and
+# than the ladder's widest plane (w = 123)
+WIDE = [123, 300, 1000]
 
 
 def _stream(n, seed, high=1 << 30):
@@ -77,7 +81,7 @@ def test_murmur128_matches_jax_package(k):
         assert (int(_u64(g[0])[0]), int(_u64(g[1])[0])) == (h1, h2)
 
 
-@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("w", WIDTHS + WIDE)
 def test_normalized_windows_match_jax_package(w):
     """normalize=True against normalize_rows + murmur128_u32rows and
     against the native fused sweep, every window of the stream."""
@@ -170,6 +174,109 @@ def test_per_window_widths():
             assert torch.equal(g1[sel], w1) and torch.equal(g2[sel], w2)
 
 
+def _jax_hashes(cat, starts, widths, normalize):
+    """The JAX package's numpy hash of each window, width by width."""
+    from metamdbg_tpu.count.kminmers import normalize_rows as jnormalize
+    from metamdbg_tpu.utils import hashing as jhashing
+
+    h1 = np.zeros(starts.shape[0], np.uint64)
+    h2 = np.zeros_like(h1)
+    for w in np.unique(widths).tolist():
+        sel = np.flatnonzero(widths == w)
+        win = cat[starts[sel, None] + np.arange(w)]
+        if normalize:
+            win = jnormalize(win)[0]
+        h1[sel], h2[sel] = jhashing.murmur128_u32rows(win)
+    return h1, h2
+
+
+def _unitigs(seed, n, max_w):
+    """Back-to-back sequences of 1..max_w words (the deterministic order's
+    shape: one window per whole sequence) and their starts and widths. The
+    widths take at most 40 values: the plain version runs once per
+    distinct width."""
+    rng = np.random.default_rng(seed)
+    widths = rng.choice(np.unique(np.geomspace(1, max_w, 40).astype(int)),
+                        size=n)
+    widths[:3] = (max_w, max_w - 1, 1)
+    rng.shuffle(widths)
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    return _stream(int(widths.sum()) + 64, seed), starts, widths
+
+
+@pytest.mark.parametrize("shape", ["unitigs_5000", "narrow_unitigs"])
+def test_per_window_widths_match_jax_package(shape):
+    """Per-window widths up to 5,000 words (whole unitigs, disjoint and
+    back to back) against the JAX package's numpy hash, both modes."""
+    max_w, n = (5000, 24) if shape == "unitigs_5000" else (40, 600)
+    cat, starts, widths = _unitigs(11, n, max_w)
+    for normalize in (False, True):
+        got = [_u64(h) for h in kw.hash_windows(
+            _t(cat), torch.from_numpy(starts), torch.from_numpy(widths),
+            normalize)]
+        want = _jax_hashes(cat, starts, widths, normalize)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def _layout(name, seed):
+    """Starts in a layout the kernel handles on a path of its own:
+    `disjoint`, row slices as hash_rows makes them (starts = i*k + first);
+    `unsorted`, every window of a stream in a shuffled order."""
+    rng = np.random.default_rng(seed)
+    if name == "disjoint":
+        k, first, w = 24, 1, 22
+        cat = _stream(3000 * k, seed)
+        starts = np.arange(3000, dtype=np.int64) * k + first
+        return cat, starts, w
+    w = 17
+    cat = _stream(20000, seed)
+    starts = rng.permutation(cat.shape[0] - w + 1).astype(np.int64)
+    return cat, starts, w
+
+
+@pytest.mark.parametrize("layout", ["disjoint", "unsorted"])
+def test_start_layouts_match_jax_package(layout):
+    cat, starts, w = _layout(layout, seed=12)
+    widths = np.full(starts.shape[0], w)
+    for normalize in (False, True):
+        got = [_u64(h) for h in kw.hash_windows(
+            _t(cat), torch.from_numpy(starts), w, normalize)]
+        want = _jax_hashes(cat, starts, widths, normalize)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def _range_case(kind, n=100, w=5):
+    """Windows that end exactly at the stream's end, and the same with one
+    window one word past it."""
+    starts = torch.arange(n - w + 1)
+    if kind == "fixed":
+        width = w
+    else:
+        width = torch.full_like(starts, w)
+        width[::7] = 1
+    past = starts.clone()
+    past[len(past) // 2] = n - w + 1
+    return width, starts, past
+
+
+@pytest.mark.parametrize("kind", ["fixed", "per_window"])
+def test_range_check_raises_one_past_the_end(kind):
+    cat = torch.arange(100, dtype=torch.int64)
+    width, starts, past = _range_case(kind)
+    kw.hash_windows(cat, starts, width, True)
+    with pytest.raises(ValueError, match="outside"):
+        kw.hash_windows(cat, past, width, True)
+    with pytest.raises(ValueError, match="outside"):
+        kw.hash_windows(cat, torch.tensor([-1]), 5, False)
+    if kind == "per_window":
+        bad = width.clone()
+        bad[3] = 0
+        with pytest.raises(ValueError, match=">= 1"):
+            kw.hash_windows(cat, starts, bad, True)
+
+
 def test_wrapper_checks_and_cpu_route():
     cat = torch.arange(100, dtype=torch.int64)
     kw.reset_counts()
@@ -185,22 +292,85 @@ def test_wrapper_checks_and_cpu_route():
     assert h1.shape == h2.shape == (0,)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("w", [4, 5, 6, 7, 16, 61])
-def test_cuda_kernel_matches_reference(w):
-    """The CUDA kernel against the plain version on the card, both modes,
-    fixed and per-window widths: bit-identical."""
+def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
+
+
+def _same(got, want):
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [4, 5, 6, 7, 16, 61] + WIDE + [4000])
+def test_cuda_kernel_matches_reference(w):
+    """The CUDA kernel against the plain version on the card, both modes,
+    fixed and per-window widths: bit-identical."""
+    _need_gpu()
     cat = _t(_stream(1 << 16, seed=40 + w)).cuda()
-    starts = torch.arange(cat.numel() - w + 1, device="cuda")
+    # w = 4000: a block's span outgrows shared memory, so windows read
+    # global memory; the plain version hashes a few blocks of them
+    n = cat.numel() - w + 1 if w <= 1000 else 2048
+    starts = torch.arange(n, device="cuda")
     for normalize in (True, False):
         got = kw.hash_windows(cat, starts, w, normalize)
         torch.cuda.synchronize()
         want = kw.hash_windows_reference(cat, starts, w, normalize)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    widths = torch.randint(1, w + 1, starts.shape, device="cuda")
+        assert _same(got, want)
+    # the plain version's cost grows with the distinct widths' sum
+    choices = torch.tensor(sorted(x for x in {1, 2, 3, 5, w // 3, w // 2,
+                                              w - 1, w} if 1 <= x <= w),
+                           device="cuda")
+    widths = choices[torch.randint(0, choices.numel(), starts.shape,
+                                   device="cuda")]
     got = kw.hash_windows(cat, starts, widths, True)
     want = kw.hash_windows_reference(cat, starts, widths, True)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["unitigs_5000", "narrow_unitigs"])
+def test_cuda_per_window_widths(shape):
+    """Whole unitigs up to 5,000 words: the kernel against the plain
+    version on the card, both modes."""
+    _need_gpu()
+    max_w, n = (5000, 600) if shape == "unitigs_5000" else (40, 20000)
+    cat, starts, widths = (torch.from_numpy(x.astype(np.int64)).cuda()
+                           for x in _unitigs(13, n, max_w))
+    for normalize in (False, True):
+        got = kw.hash_windows(cat, starts, widths, normalize)
+        want = kw.hash_windows_reference(cat, starts, widths, normalize)
+        assert _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["disjoint", "unsorted"])
+def test_cuda_start_layouts(layout):
+    _need_gpu()
+    cat, starts, w = _layout(layout, seed=14)
+    cat, starts = _t(cat).cuda(), torch.from_numpy(starts).cuda()
+    for normalize in (False, True):
+        got = kw.hash_windows(cat, starts, w, normalize)
+        want = kw.hash_windows_reference(cat, starts, w, normalize)
+        assert _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fixed", "per_window"])
+def test_cuda_range_check_raises(kind):
+    _need_gpu()
+    cat = torch.arange(100, dtype=torch.int64, device="cuda")
+    width, starts, past = _range_case(kind)
+    if not isinstance(width, int):
+        width = width.cuda()
+    got = kw.hash_windows(cat, starts.cuda(), width, True)
+    assert _same(got, kw.hash_windows_reference(cat, starts.cuda(), width,
+                                                True))
+    with pytest.raises(ValueError, match="outside"):
+        kw.hash_windows(cat, past.cuda(), width, True)
+    if kind == "per_window":
+        bad = width.clone()
+        bad[3] = 0
+        with pytest.raises(ValueError, match=">= 1"):
+            kw.hash_windows(cat, starts.cuda(), bad, True)
