@@ -25,9 +25,9 @@
 //
 // What bounds it on this card: integer operations once w > ~26, bytes
 // below, for a launch large enough to fill the card. A 16-byte murmur
-// block costs 22 multiply-adds (FMA pipe) and 16 other integer operations
-// (INT32 pipe), ~58 SASS instructions, w/4 blocks a window; the finalizer
-// 16 + 24. The chain of one window is serial (each block's h1, h2 depend
+// block costs 22 multiply-adds (FMA pipe), 12 INT32-only operations and 4
+// adds that either pipe takes, ~58 SASS instructions, w/4 blocks a window;
+// the finalizer 16 + 16 + 8. The chain of one window is serial (each block's h1, h2 depend
 // on the last). The main path's launches are small (most hold 4,096-65,536
 // windows: fewer blocks than the card has SMs at the low end), and there
 // the card's fixed cost of a launch, ~3 us, sets the time.

@@ -88,7 +88,11 @@ def sketch_tiles_reference(codes: torch.Tensor, l: int, density: float,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("sketch", _SOURCES)
+    return _bind(build.load("sketch", _SOURCES))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares sketch.cu's C interface on a loaded library."""
     vp = ctypes.c_void_p
     lib.sketch_tiles_launch.argtypes = [
         vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,

@@ -90,7 +90,11 @@ def hash_windows_reference(cat: torch.Tensor, starts: torch.Tensor, w,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("window_hash", _SOURCES)
+    return _bind(build.load("window_hash", _SOURCES))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares window_hash.cu's C interface on a loaded library."""
     vp, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.window_hash_launch.argtypes = [vp, i64, vp, vp, i64, ctypes.c_int,
                                        ctypes.c_int, vp, i64, vp]

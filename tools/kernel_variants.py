@@ -17,12 +17,15 @@ l = 15 and densities 0.005 and 0.1; KW on 4,194,304 windows at w = 4, 16,
 on (2^20, 24) row slices, on 24,576 windows at w = 32 (a launch of the
 ladder's size), on 4,000 whole unitigs of up to 20,000 words, and on the
 planes of a ladder (10,000 reads of ~60 minimizers at w = 4..123, 120
-launches, timed as a sum). With --parent DIR, the parent commit's kernel
-(its own C interface, built by chip_smoke.ParentKernels) is timed too. Prints one line per variant and
-shape, and `-Xptxas -v`'s registers and spills for each build.
+launches, timed as a sum). Every build is launched through the wrapper's
+own `_enqueue`, with its `_lib` pointing at the build and the wrapper's
+`_bind` declaring the C interface, so a variant keeps the committed
+source's interface. Prints one line per variant and shape, and `-Xptxas
+-v`'s registers and spills for each build.
 """
 
 import argparse
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -39,10 +42,9 @@ import chip_smoke as cs  # noqa: E402
 from metamdbg_tpu_torch.kernels import build  # noqa: E402
 from metamdbg_tpu_torch.kernels import sketch as ksketch  # noqa: E402
 from metamdbg_tpu_torch.kernels import window_hash as kw  # noqa: E402
-from metamdbg_tpu_torch.utils import hashing  # noqa: E402
 
 
-def _build(kernel, name, text, work):
+def _build(module, name, text, work):
     src = os.path.join(work, f"{name}.cu")
     with open(src, "w") as f:
         f.write(text)
@@ -55,18 +57,18 @@ def _build(kernel, name, text, work):
     regs = [line.split("info    : ")[-1] for line in proc.stderr.splitlines()
             if "registers" in line or "spill" in line]
     print(f"{name}: " + "; ".join(r.strip() for r in regs))
-    lib = ctypes.CDLL(out)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    if kernel == "sketch":
-        fn = lib.sketch_tiles_launch
-        fn.argtypes = [vp, i, i, i, ctypes.c_ulonglong, i, i, vp, vp, vp, vp,
-                       vp]
-    else:
-        fn = lib.window_hash_launch
-        fn.argtypes = [vp, ctypes.c_longlong, vp, vp, ctypes.c_longlong, i, i,
-                       vp, ctypes.c_longlong, vp]
-    fn.restype = i
-    return fn
+    return module._bind(ctypes.CDLL(out))
+
+
+@contextlib.contextmanager
+def _using(module, lib):
+    """The wrapper `module` launches from `lib` inside the block."""
+    real = module._lib
+    module._lib = lambda: lib
+    try:
+        yield
+    finally:
+        module._lib = real
 
 
 def _k1_cases(dev):
@@ -79,10 +81,6 @@ def _k1_cases(dev):
                                            seed=100 + i)).to(dev)
         ref = ksketch.sketch_tiles_reference(codes, l, density, cap)
         out = ksketch._launch(codes, l, density, cap)
-        t = hashing._exact_u64_threshold(density)
-        args = (codes.data_ptr(), TILE_ROWS, TILE_LEN, l,
-                min(t, (1 << 64) - 1), int(t >= 1 << 64), cap,
-                *(x.data_ptr() for x in out))
 
         def check(out=out, ref=ref, cap=cap):
             if not torch.equal(out[3], ref[3]):
@@ -92,8 +90,7 @@ def _k1_cases(dev):
             return all(torch.equal(g.to(torch.int64)[live],
                                    w.to(torch.int64)[live])
                        for g, w in zip(out[:3], ref[:3]))
-        yield f"density {density}", [
-            (args, check, (codes, l, density, cap, out))]
+        yield f"density {density}", [(check, (codes, l, density, cap, out))]
 
 
 def _kw_cases(dev):
@@ -138,36 +135,32 @@ def _kw_cases(dev):
 
 
 def _kw_launch(c, starts, w, normalize):
-    """(C arguments, check, tensors) of one KW launch into a fresh output."""
+    """(check, _enqueue's arguments) of one KW launch into a fresh
+    output."""
     n = starts.numel()
     ref = kw.hash_windows_reference(c, starts, w, normalize)
     out = torch.empty(2 * n + 1, dtype=torch.int64, device=c.device)
-    ragged = not isinstance(w, int)
     token = 4 << 40
-    args = (c.data_ptr(), c.numel(), starts.data_ptr(),
-            w.data_ptr() if ragged else None, n, 0 if ragged else w,
-            int(normalize), out.data_ptr(), token)
 
     def check():
         return (torch.equal(out[:n], ref[0])
                 and torch.equal(out[n:2 * n], ref[1])
                 and int(out[2 * n]) - token not in (1, 2))
-    return args, check, (c, starts, w, normalize, out)
+    return check, (c, starts, w, normalize, out, token)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("sketch", "window_hash"))
     ap.add_argument("variants", nargs="*")
-    ap.add_argument("--parent", metavar="DIR", help="a checkout of the "
-                    "parent commit: its kernel is timed too, as `parent`")
-    args = ap.parse_intermixed_args()
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
+    module = ksketch if args.kernel == "sketch" else kw
     text = open(os.path.join(build.CSRC_DIR, f"{args.kernel}.cu")).read()
     work = tempfile.mkdtemp(prefix="variants_")
-    libs = {"committed": _build(args.kernel, "committed", text, work)}
+    libs = {"committed": _build(module, "committed", text, work)}
     for spec in args.variants:
         name, _, edits = spec.partition("=")
         vtext = text
@@ -176,20 +169,16 @@ def main():
             if vtext.count(old) != 1:
                 sys.exit(f"{name}: {old!r} occurs {vtext.count(old)} times")
             vtext = vtext.replace(old, new)
-        libs[name] = _build(args.kernel, name.replace(" ", "_"), vtext, work)
-    parent = args.parent and cs.ParentKernels(os.path.abspath(args.parent),
-                                              work)
+        libs[name] = _build(module, name.replace(" ", "_"), vtext, work)
     cases = _k1_cases(dev) if args.kernel == "sketch" else _kw_cases(dev)
     for what, launches in cases:
-        runners = {name: _runner(fn, launches)
-                   for name, fn in libs.items()}
-        if parent:
-            runners["parent"] = _parent_runner(parent, args.kernel, launches)
+        runners = {name: _runner(module, lib, launches)
+                   for name, lib in libs.items()}
         times = {}
         for name, run in runners.items():
             run()
             torch.cuda.synchronize()
-            if not all(check() for _, check, _ in launches):
+            if not all(check() for check, _ in launches):
                 sys.exit(f"{name} {what}: differs from the plain version")
             times[name] = [cs._time_ms(run)]
         # the committed source again, last
@@ -199,24 +188,11 @@ def main():
                   f"{' / '.join(f'{x:.4f}' for x in t)} ms, bit-identical")
 
 
-def _runner(fn, launches):
+def _runner(module, lib, launches):
     def run():
-        stream = torch.cuda.current_stream().cuda_stream
-        for cargs, _, _ in launches:
-            if fn(*cargs, stream):
-                sys.exit("launch failed")
-    return run
-
-
-def _parent_runner(parent, kernel, launches):
-    def run():
-        for _, _, t in launches:
-            if kernel == "sketch":
-                parent.k1(*t)
-            else:
-                c, starts, w, normalize, out = t
-                n = starts.numel()
-                parent.kw(c, starts, w, normalize, out[:n], out[n:2 * n])
+        with _using(module, lib):
+            for _, args in launches:
+                module._enqueue(*args)
     return run
 
 
