@@ -6,8 +6,8 @@ Kernel times are device times: CUDA events around 20 back-to-back launches
 on outputs allocated once, divided by 20, the median of 3 such runs after
 a warm-up (`_time_ms`); beside them, the host clock per call of the
 wrapper a caller uses (`_host_ms`). tools/kernel_ab.py times a parent
-commit's K1 and KW beside these on the same inputs, and the device's idle
-share over the HiFi asm.
+commit's K1, KW, K3 and K4 beside these on the same inputs, and the
+device's idle share over the HiFi asm.
 
 Phases, each of which exits non-zero when it fails:
 1. device: a CUDA GPU must be visible; prints its nvidia-smi name and
@@ -40,15 +40,18 @@ Phases, each of which exits non-zero when it fails:
 3d. chain kernel (K3): the read-vs-contig chain DP against its plain torch
    version on the card, on 16,384 anchor groups of 2-300 anchors and three
    of 5,000-10,000 (both strands, noise anchors, planted equal-score ties),
-   at the asm's d_r_max: scores (as f32 bits), parents and best indexes
-   identical (tolerance 0). Prints the kernel and plain times;
+   at the asm's d_r_max, then on lengths at the kernel's edges (groups of
+   0, 1 and 2 anchors, its gap row's, tiles' and spans' lengths) and on
+   groups all too long for a span: scores (as f32 bits), parents and best
+   indexes identical (tolerance 0). Prints the kernel and plain times;
 3e. chain DP kernel (K4): the correction mapper's chain DP against its plain
    torch version on the card, on 500,000 anchor groups of 3-200 anchors and
    three of 5,000-10,000 (both strands, noise anchors, planted equal-score
-   ties), at bands 62 (the asm's), 10 and 125: scores (as f32 bits),
-   parents, best indexes, chain lengths, chain scores and chain positions
-   identical (tolerance 0). Prints the kernel and plain times and the
-   bound at band 62;
+   ties), at bands 62 (the asm's), 10 and 125, then edge lengths (as for
+   3d, at K4's tiles and spans) and all-long groups at bands 62, 32, 33,
+   64, 65 and 300: scores (as f32 bits), parents, best indexes, chain
+   lengths, chain scores and chain positions identical (tolerance 0).
+   Prints the kernel and plain times and the bound at band 62;
 4. end to end: a 4 Mb circular genome at 30x HiFi (tests/datagen.py, seed
    1) through `python -m metamdbg_tpu_torch asm --device cuda --threads 1`'s
    entry point, in this process, where a sys.meta_path finder refuses
@@ -65,8 +68,9 @@ Phases, each of which exits non-zero when it fails:
    prints a histogram of the KW launches by size, then launches again,
    against the plain version and timed, every sketch launch, the KW
    launches that hold 90% of the run's windows x width and every KW
-   launch with per-window widths, and the K3 call: the main path's own
-   launches, with the sum of their times and of their bounds.
+   launch with per-window widths, and the K3 call (held bit-identical to
+   the plain version, with the host ms per chain_contig call): the main
+   path's own launches, with the sum of their times and of their bounds.
 8. ONT end to end (run after the references of phases 5-7 and the one of
    phase 9 have started, beside them): the 3-genome ONT metagenome of
    tests/test_quality_harness.py:103-112 (~86 Mbp) through `asm --in-ont
@@ -76,7 +80,10 @@ Phases, each of which exits non-zero when it fails:
    every stage, readCorrection included, must have run as port:cuda, and
    the contigs' total length must lie within 2% of 2.1 Mb. Prints stage
    walls, the correction checksum, the contigs, and K4's time on the main
-   path's own inputs, launched again after the run.
+   path's own inputs, launched again after the run and held bit-identical
+   to the plain version, with the host ms per chain_dp call; those inputs
+   are saved to chip_inputs/chain_dp_main.pt for tools/kernel_ab.py and
+   tools/kernel_variants.py.
 
 The references run the JAX package's stages through
 tests/jax_reference.py, host-only with jax imports blocked, each in its own
@@ -156,6 +163,20 @@ BASESPACE_OUTPUTS = ("contig_data_init_small.txt",
 CHAIN_GROUPS, CHAIN_MAX_LEN, CHAIN_LONG = 16_384, 300, (5_000, 7_500, 10_000)
 CHAIN_DP_GROUPS, CHAIN_DP_MAX_LEN = 500_000, 200
 CHAIN_DP_BANDS, CHAIN_DP_TIMED = (62, 10, 125), 62
+# lengths at the kernels' edges (empty groups and groups of 1 and 2
+# anchors; K3's band of 10 and 16-byte gap rows, tiles of 1,024 anchors and
+# spans of 2,048; K4's warps of 32, tiles of 256 and spans of 384), sets of
+# groups that all run from device memory, and K4's bands at the edges of
+# its 32-lane team's two register slots and one far past them
+CHAIN_EDGES = (0, 1, 2, 0, 9, 10, 11, 15, 16, 17, 1023, 1024, 1025, 2047,
+               2048, 2049)
+CHAIN_ALL_LONG = (2049, 2100, 3000, 4000)
+CHAIN_DP_EDGES = (0, 1, 2, 0, 31, 32, 33, 63, 64, 65, 255, 256, 257, 383,
+                  384, 385)
+CHAIN_DP_ALL_LONG = (385, 386, 1000, 4000)
+CHAIN_DP_EDGE_BANDS = (32, 33, 64, 65, 300)
+# the ONT asm's K4 call, kept by phase 8 (a directory .gitignore lists)
+CHAIN_DP_SAVED = os.path.join(REPO, "chip_inputs", "chain_dp_main.pt")
 # the ONT metagenome of tests/test_quality_harness.py:103-112 (~86 Mbp)
 ONT_SIZES, ONT_COVERAGES = (500_000, 700_000, 900_000), (15, 35, 60)
 ONT_TOTAL_LEN, ONT_LEN_TOLERANCE = 2_100_000, 0.02
@@ -640,14 +661,14 @@ def chain_groups(lengths, seed):
             # A(r, Q), B(r+2, Q), C(r+4, Q+-3), 30 refs past the rest (out
             # of reach at d_r_max 25): C's candidates from A and from B are
             # equal; B, the nearer, must win
-            r0 = int(ref.max()) + 30
-            q0 = 3 + (0 if rev else int(q.max()) + 20)
+            r0 = int(ref.max(initial=0)) + 30
+            q0 = 3 + (0 if rev else int(q.max(initial=0)) + 20)
             ref = np.concatenate([ref, [r0, r0 + 2, r0 + 4]])
             q = np.concatenate([q, [q0, q0, q0 - 3 if rev else q0 + 3]])
             is_rev = np.concatenate([is_rev, [rev] * 3])
         order = np.lexsort((q, ref))
         ref, q, is_rev = ref[order], q[order], is_rev[order]
-        bp = np.cumsum(rng.integers(50, 700, int(q.max()) + 1))
+        bp = np.cumsum(rng.integers(50, 700, int(q.max(initial=0)) + 1))
         parts.append((ref, q, bp[q], is_rev))
     offsets = np.zeros(len(parts) + 1, np.int64)
     offsets[1:] = np.cumsum([p[0].shape[0] for p in parts])
@@ -718,6 +739,43 @@ def chain_contig_bound(sizes):
                  K3_INT_OPS * tests, f32_ops=K3_F32_OPS * tests)
 
 
+def _k3_check(what, inputs, d_r_max):
+    """K3 against its plain version on `inputs`, or fail; returns (the
+    kernel's outputs, max_abs_err)."""
+    from metamdbg_tpu_torch.kernels import chain as kchain
+
+    got = kchain.chain_contig(*inputs, d_r_max)
+    torch.cuda.synchronize()
+    want = kchain.chain_contig_reference(*inputs, d_r_max)
+    same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+    err = 0.0
+    if inputs[0].numel():
+        err = max(float((got[0] - want[0]).abs().max()),
+                  int((got[1].to(torch.int64)
+                       - want[1].to(torch.int64)).abs().max()))
+    if want[2].numel():
+        err = max(err, int((got[2].to(torch.int64)
+                            - want[2].to(torch.int64)).abs().max()))
+    if not same:
+        fail(f"chain kernel on {what} differs from the plain version (max "
+             f"abs err {err})")
+    return got, err
+
+
+def _edge_lengths(edges, n, hi, seed):
+    """Group lengths: `edges` between n random ones in [2, hi) before and
+    after, each at an index that is not a multiple of 3 (chain_groups and
+    chain_dp_groups plant a tie of 3 anchors in those), with a group of 3
+    at each multiple. A group at least a tile long straddles a tile."""
+    rng = np.random.default_rng(seed)
+    cells = []
+    for k in range(0, len(edges), 2):
+        cells += [3, *edges[k:k + 2]]
+    return np.concatenate([rng.integers(2, hi, 3 * (n // 3)), cells,
+                           rng.integers(2, hi, n)]).astype(np.int64)
+
+
 def chain_phase(dev):
     """K3 against its plain version; returns (max_abs_err, kernel ms, plain
     ms, bound)."""
@@ -735,17 +793,7 @@ def chain_phase(dev):
     # the asm's: avg_dist = 1 / f32(density 0.005)
     d_r_max = _d_r_max(float(1.0 / np.float32(0.005)))
 
-    got = kchain.chain_contig(*inputs, d_r_max)
-    torch.cuda.synchronize()
-    want = kchain.chain_contig_reference(*inputs, d_r_max)
-    same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
-    err = max(float((got[0] - want[0]).abs().max()),
-              *(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                for g, w in zip(got[1:], want[1:])))
-    if not same:
-        fail(f"chain kernel differs from the plain version (max abs err "
-             f"{err})")
+    got, err = _k3_check("phase 3d's groups", inputs, d_r_max)
     buf = kchain._launch(*inputs, d_r_max)
     k_ms = _time_ms(lambda: kchain._enqueue(*inputs, d_r_max, buf))
     p_ms = _time_ms(lambda: kchain.chain_contig_reference(*inputs, d_r_max),
@@ -758,7 +806,17 @@ def chain_phase(dev):
           f"{int(sizes.max())}, made in {gen_s:.1f} s), d_r_max {d_r_max}: "
           f"scores' f32 bits, parents and best indexes identical to plain "
           f"({chains} groups chained); kernel {k_ms:.4f} ms, plain torch "
-          f"{p_ms:.4f} ms")
+          f"{p_ms:.4f} ms, bound {chain_bound[0]:.4f} ms ({chain_bound[1]})")
+    for what, lengths in (
+            ("edge lengths", _edge_lengths(CHAIN_EDGES, 2000, 80, 402)),
+            ("groups all past the span", np.array(CHAIN_ALL_LONG))):
+        arrays = chain_groups(lengths, seed=403)
+        _, e = _k3_check(what, [torch.from_numpy(a).to(dev) for a in arrays],
+                         d_r_max)
+        err = max(err, e)
+        print(f"kernel chain_contig on {what} ({lengths.size} groups, "
+              f"{arrays[0].shape[0]} anchors, longest "
+              f"{int(np.diff(arrays[4]).max())}): identical to plain")
     return err, k_ms, p_ms, chain_bound
 
 
@@ -782,9 +840,37 @@ def _k4_inputs(arrays):
     return ref.to(torch.int32), q.to(torch.int32), rev, q_idx, offsets
 
 
+K4_FIELDS = ("scores", "parents", "best_index", "chain_len", "chain_score",
+             "chain_pos")
+
+
+def _k4_check(what, kin, band, got=None):
+    """K4's outputs `got` (else a launch through the wrapper's _launch)
+    against the plain version on `kin` at `band`, or fail; returns (the
+    kernel's outputs, max_abs_err)."""
+    from metamdbg_tpu_torch.kernels import chain_dp as k4
+
+    if got is None:
+        got = k4._launch(*kin, band)
+    torch.cuda.synchronize()
+    want = k4.chain_dp_reference(*kin, band)
+    same = torch.equal(got.scores.view(torch.int32),
+                       want.scores.view(torch.int32)) and all(
+        torch.equal(getattr(got, f), getattr(want, f)) for f in K4_FIELDS[1:])
+    err = max([0.0] + [
+        float((getattr(got, f).to(torch.float64)
+               - getattr(want, f).to(torch.float64)).abs().max())
+        for f in K4_FIELDS if getattr(want, f).numel()])
+    if not same:
+        fail(f"chain_dp kernel on {what} at band {band} differs from the "
+             f"plain version (max abs err {err})")
+    return got, err
+
+
 def chain_dp_phase(dev):
-    """K4 against its plain version at three bands; returns (max_abs_err,
-    kernel ms, plain ms, bound) at the asm's band."""
+    """K4 against its plain version at three bands, and on edge lengths at
+    the bands of the kernel's edges; returns (max_abs_err, kernel ms, plain
+    ms, bound) at the asm's band."""
     from metamdbg_tpu_torch.kernels import chain_dp as k4
 
     rng = np.random.default_rng(500)
@@ -797,24 +883,10 @@ def chain_dp_phase(dev):
     inputs = [torch.from_numpy(a).to(dev) for a in arrays]
     kin = _k4_inputs(inputs)
     sizes = np.diff(arrays[4])  # chain_dp_groups adds the planted ties
-    fields = ("scores", "parents", "best_index", "chain_len", "chain_score",
-              "chain_pos")
     err, result = 0, None
     for band in CHAIN_DP_BANDS:
-        got = k4.chain_dp(*inputs, band)
-        torch.cuda.synchronize()
-        want = k4.chain_dp_reference(*kin, band)
-        same = torch.equal(got.scores.view(torch.int32),
-                           want.scores.view(torch.int32)) and all(
-            torch.equal(getattr(got, f), getattr(want, f))
-            for f in fields[1:])
-        band_err = max(float((got.scores - want.scores).abs().max()), *(
-            int((getattr(got, f).to(torch.int64)
-                 - getattr(want, f).to(torch.int64)).abs().max())
-            for f in fields[1:]))
-        if not same:
-            fail(f"chain_dp kernel at band {band} differs from the plain "
-                 f"version (max abs err {band_err})")
+        got, band_err = _k4_check("phase 3e's groups", kin, band,
+                                  k4.chain_dp(*inputs, band))
         err = max(err, band_err)
         chains = int((got.chain_score != k4.INT32_MIN).sum())
         print(f"kernel chain_dp band {band}: {sizes.size} groups, "
@@ -832,7 +904,18 @@ def chain_dp_phase(dev):
             print(f"kernel chain_dp band {band}: kernel {k_ms:.4f} ms, plain "
                   f"torch {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             result = (k_ms, p_ms, (b_ms, b_by))
-        del got, want
+        del got
+    for what, lengths in (
+            ("edge lengths", _edge_lengths(CHAIN_DP_EDGES, 2000, 40, 502)),
+            ("groups all past the span", np.array(CHAIN_DP_ALL_LONG))):
+        arrays = chain_dp_groups(lengths, seed=503)
+        edge_kin = _k4_inputs([torch.from_numpy(a).to(dev) for a in arrays])
+        for band in (CHAIN_DP_TIMED, *CHAIN_DP_EDGE_BANDS):
+            err = max(err, _k4_check(what, edge_kin, band)[1])
+        print(f"kernel chain_dp on {what} ({lengths.size} groups, "
+              f"{arrays[0].shape[0]} anchors, longest "
+              f"{int(np.diff(arrays[4]).max())}) at bands "
+              f"{(CHAIN_DP_TIMED, *CHAIN_DP_EDGE_BANDS)}: identical to plain")
     return (err, *result)
 
 
@@ -1190,15 +1273,18 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
         k3_main = [0.0, 0.0]
         for stage, args in zip(stage_of, chain_calls):
             sizes = np.diff(args[4].cpu().numpy())
-            buf = kchain._launch(*args)
+            buf, _ = _k3_check(f"the main path's call in {stage}", args[:5],
+                               args[5])
             ms = _time_ms(lambda: kchain._enqueue(*args, buf))
+            host_ms = _host_ms(lambda: kchain.chain_contig(*args))
             b_ms, b_by = chain_contig_bound(sizes)
             k3_main[0] += ms
             k3_main[1] += b_ms
             print(f"e2e chain kernel in {stage}: {sizes.size} groups, "
                   f"{int(sizes.sum())} anchors, longest {int(sizes.max())}, "
-                  f"d_r_max {args[5]}; again after the run: {ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by})")
+                  f"d_r_max {args[5]}; again after the run: identical to "
+                  f"plain, {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"chain_contig {host_ms:.4f} ms host clock per call")
         print(f"e2e: {len(passes)} passes; every stage {port}; window hash "
               f"kernel launches {kw_launches} ({min(kw_passes)}-"
               f"{max(kw_passes)} per pass); sketch kernel launches per "
@@ -1292,18 +1378,26 @@ def ont_phase(work, dev, fq):
           f"{launches}; in readCorrection {correction}")
     k4_main = [0.0, 0.0, len(calls)]
     if dev.type == "cuda":
-        for args in calls:
+        for k, args in enumerate(calls):
             kin = _k4_inputs(args[:5])
             sizes = np.diff(args[4].cpu().numpy())
-            buf = k4._launch(*kin, args[5])
+            buf, _ = _k4_check("the main path's call", kin, args[5])
             ms = _time_ms(lambda: k4._enqueue(*kin, args[5], buf))
+            host_ms = _host_ms(lambda: k4.chain_dp(*args))
             b = chain_dp_bound(sizes, args[5])
             k4_main[0] += ms
             k4_main[1] += b[0]
             print(f"ont chain_dp kernel in readCorrection: {sizes.size} "
                   f"groups, {int(sizes.sum())} anchors, longest "
                   f"{int(sizes.max())}, band {args[5]}; again after the "
-                  f"run: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+                  f"run: identical to plain, {ms:.4f} ms, bound {b[0]:.4f} "
+                  f"ms ({b[1]}); chain_dp {host_ms:.4f} ms host clock per "
+                  f"call")
+            if k == 0:
+                # for tools/kernel_ab.py and tools/kernel_variants.py
+                os.makedirs(os.path.dirname(CHAIN_DP_SAVED), exist_ok=True)
+                torch.save({"inputs": [t.cpu() for t in kin],
+                            "band": args[5]}, CHAIN_DP_SAVED)
 
     headers, lengths = _contigs(out)
     total = sum(lengths)

@@ -2,9 +2,10 @@
 
 Each library is a plain C interface compiled for Hopper into
 `metamdbg_tpu_torch/_build/`, at first use, under a name keyed by a hash
-of its sources and flags, so an edited source is rebuilt and a built one
-is reused. A file lock makes concurrent first uses build once. nvcc is
-found through $CUDA_HOME, then $PATH, then the toolkit's default prefix.
+of its sources, the shared headers (csrc/*.cuh) and the flags, so an
+edited source or header is rebuilt and a built one is reused. A file
+lock makes concurrent first uses build once. nvcc is found through
+$CUDA_HOME, then $PATH, then the toolkit's default prefix.
 Nothing is built when a module is imported, and a build that fails raises.
 """
 
@@ -36,10 +37,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def headers() -> list:
+    """The shared headers in csrc/ (*.cuh), which any source may include."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def library_path(name: str, sources) -> str:
-    """Where lib<name> built from `sources` (file names in csrc/) lives."""
+    """Where lib<name> built from `sources` (file names in csrc/) lives; the
+    name's hash covers the headers too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in [*sources, *headers()]:
         with open(os.path.join(CSRC_DIR, s), "rb") as f:
             h.update(s.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

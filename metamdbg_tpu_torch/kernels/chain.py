@@ -123,10 +123,14 @@ def chain_contig_reference(ref_pos, q_pos, q_bp, is_rev, offsets,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("chain_contig", _SOURCES)
-    vp = ctypes.c_void_p
+    return _bind(build.load("chain_contig", _SOURCES))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares chain_contig.cu's C interface on a loaded library."""
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.chain_contig_launch.argtypes = [
-        vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+        vp, vp, vp, vp, vp, i64, i64, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, vp, vp, vp, vp]
     lib.chain_contig_launch.restype = ctypes.c_int
     lib.chain_contig_error_string.argtypes = [ctypes.c_int]
@@ -146,8 +150,9 @@ def _enqueue(ref_pos, q_pos, q_bp, is_rev, offsets, d_r_max: int, out):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chain_contig_launch(
             ref_pos.data_ptr(), q_pos.data_ptr(), q_bp.data_ptr(),
-            rev.data_ptr(), offsets.data_ptr(), n_groups, d_r_max, W,
-            MAX_GAP, BP_CAP, *(x.data_ptr() for x in out), stream)
+            rev.data_ptr(), offsets.data_ptr(), n_groups, ref_pos.shape[0],
+            d_r_max, W, MAX_GAP, BP_CAP, *(x.data_ptr() for x in out),
+            stream)
     if err != 0:
         raise RuntimeError("chain kernel launch failed: "
                            + lib.chain_contig_error_string(err).decode())

@@ -194,10 +194,14 @@ def chain_dp_reference(ref_pos, q_pos, is_rev, q_idx, offsets,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("chain_dp", _SOURCES)
-    vp = ctypes.c_void_p
+    return _bind(build.load("chain_dp", _SOURCES))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares chain_dp.cu's C interface on a loaded library."""
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.chain_dp_launch.argtypes = [
-        vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+        vp, vp, vp, vp, vp, i64, i64, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
     lib.chain_dp_launch.restype = ctypes.c_int
     lib.chain_dp_error_string.argtypes = [ctypes.c_int]
@@ -218,8 +222,9 @@ def _enqueue(ref_pos, q_pos, is_rev, q_idx, offsets, band: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chain_dp_launch(
             ref_pos.data_ptr(), q_pos.data_ptr(), rev.data_ptr(),
-            q_idx.data_ptr(), offsets.data_ptr(), n_groups, band, CHAIN_W,
-            CHAIN_MAX_DIST, CHAIN_MAX_GAP, out.scores.data_ptr(),
+            q_idx.data_ptr(), offsets.data_ptr(), n_groups,
+            ref_pos.shape[0], band, CHAIN_W, CHAIN_MAX_DIST, CHAIN_MAX_GAP,
+            out.scores.data_ptr(),
             out.parents.data_ptr(), out.best_index.data_ptr(),
             out.chain_len.data_ptr(), out.chain_score.data_ptr(),
             out.chain_pos.data_ptr(), stream)

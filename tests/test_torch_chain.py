@@ -22,6 +22,11 @@ from metamdbg_tpu_torch.basespace import contig_mapper
 from metamdbg_tpu_torch.kernels import chain as kchain
 
 AVG_DIST = float(1.0 / np.float32(0.005))  # the asm default: 200.0
+# group lengths at the kernel's edges: its band of 10 in 16-byte gap rows,
+# warps of 32, tiles of 1,024 anchors staged in spans of 2,048
+LENGTH_CASES = {"short": (0, 1, 2, 3, 0, 1, 2),
+                "team": (9, 10, 11, 15, 16, 17, 31, 32, 33),
+                "tile": (1023, 1024, 1025, 2047, 2048, 2049)}
 
 
 def _tensors(arrays, device="cpu"):
@@ -38,6 +43,8 @@ def _host_chain(chain, arrays, g, avg_dist):
     """One group through a host DP: (score, interval) or None."""
     ref, q, q_bp, rev, offs = arrays
     a, b = offs[g], offs[g + 1]
+    if a == b:
+        return None
     bp = np.zeros(int(q[a:b].max()) + 1, np.int64)
     bp[q[a:b]] = q_bp[a:b]
     return chain((ref[a:b].astype(np.int64), q[a:b].astype(np.int64),
@@ -100,6 +107,25 @@ def test_reference_matches_jax_and_host():
     got = kchain.chain_contig(*_tensors(arrays), d_r_max)
     _check_against_jax(arrays, got, d_r_max)
     _check_against_host(arrays, got, AVG_DIST)
+
+
+@pytest.mark.parametrize("case", sorted(LENGTH_CASES))
+def test_edge_lengths(case):
+    """Groups at the kernel's edges, each at an index that holds no planted
+    tie, between short groups: the plain version agrees with the XLA scan,
+    and with both host DPs up to the team edges (their Python loops take
+    minutes over tile-long groups)."""
+    rng = np.random.default_rng(len(case))
+    lengths = [3]
+    for k in range(0, len(LENGTH_CASES[case]), 2):
+        lengths += [*LENGTH_CASES[case][k:k + 2], 3]
+    lengths = np.concatenate([rng.integers(2, 40, 15), lengths])
+    arrays = chain_groups(lengths, seed=11)
+    d_r_max = contig_mapper._d_r_max(AVG_DIST)
+    got = kchain.chain_contig(*_tensors(arrays), d_r_max)
+    _check_against_jax(arrays, got, d_r_max)
+    if case != "tile":
+        _check_against_host(arrays, got, AVG_DIST)
 
 
 def test_planted_ties_pick_the_nearer_predecessor():
@@ -166,8 +192,9 @@ def test_cuda_kernel_matches_reference():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
-    arrays = chain_groups(np.concatenate([_lengths(9, 2000, 300), [6000]]),
-                          seed=10)
+    edges = [x for case in sorted(LENGTH_CASES) for x in LENGTH_CASES[case]]
+    arrays = chain_groups(np.concatenate([_lengths(9, 2000, 300), edges,
+                                          [6000]]), seed=10)
     d_r_max = contig_mapper._d_r_max(AVG_DIST)
     got = kchain.chain_contig(*_tensors(arrays, "cuda"), d_r_max)
     torch.cuda.synchronize()

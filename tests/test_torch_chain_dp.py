@@ -23,7 +23,12 @@ import torch
 from chip_smoke import chain_dp_groups
 from metamdbg_tpu_torch.kernels import chain_dp as k4
 
-BANDS = (1, 10, 62, 125)
+# the kernel's edges: a long group's 32-lane team and its two register
+# slots (bands 32 and 64), a band past both; warps of 32 threads, tiles of
+# 256 anchors staged in spans of 384
+BANDS = (1, 10, 31, 32, 33, 62, 64, 65, 125, 300)
+TEAM_EDGES = (7, 8, 9, 15, 16, 17, 31, 32, 33)
+TILE_EDGES = (255, 256, 257, 383, 384, 385, 2047, 2048, 2049)
 
 
 def _tensors(arrays, device="cpu"):
@@ -32,7 +37,7 @@ def _tensors(arrays, device="cpu"):
 
 def _lengths(seed, n, hi):
     rng = np.random.default_rng(seed)
-    return np.concatenate([[0, 1, 2, 3, 10, 11, 63, 64],
+    return np.concatenate([[0, 1, 2, 3, 10, 11, 63, 64, 65], TEAM_EDGES,
                            rng.integers(3, hi, n)])
 
 
@@ -168,6 +173,20 @@ def test_group_above_4096_anchors():
     _check_against_mapper(arrays, got, 62)
 
 
+@pytest.mark.parametrize("band", (62, 300))
+def test_tile_edge_lengths(band):
+    """Groups of a tile's and a span's length and one either side, between
+    short ones: the plain version agrees with all three."""
+    rng = np.random.default_rng(band)
+    lengths = np.concatenate([rng.integers(3, 30, 20), TILE_EDGES,
+                              rng.integers(0, 30, 20)])
+    arrays = chain_dp_groups(lengths, seed=band + 7)
+    got = k4.chain_dp(*_tensors(arrays), band)
+    _check_against_jax(arrays, got, band)
+    _check_against_native(arrays, got, band)
+    _check_against_mapper(arrays, got, band)
+
+
 def test_unsorted_chain_positions():
     """A chain whose q_idx values are not monotone along it (no real read
     gives one) still comes back with its positions ascending."""
@@ -221,14 +240,15 @@ def test_wrapper_checks_its_inputs():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_reference():
-    """The CUDA kernel against the plain version on the card at three
-    bands: scores' f32 bits and every other output identical."""
+    """The CUDA kernel against the plain version on the card at every band
+    of the CPU tests, with groups at the team and tile edges and longer
+    than a span: scores' f32 bits and every other output identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
-    arrays = chain_dp_groups(np.concatenate([_lengths(9, 3000, 200), [6000]]),
-                             seed=10)
-    for band in (10, 62, 125):
+    arrays = chain_dp_groups(np.concatenate([_lengths(9, 3000, 200),
+                                             TILE_EDGES, [6000]]), seed=10)
+    for band in BANDS:
         got = k4.chain_dp(*_tensors(arrays, "cuda"), band)
         torch.cuda.synchronize()
         want = k4.chain_dp_reference(

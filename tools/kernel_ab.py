@@ -1,5 +1,5 @@
-"""Time a parent commit's K1 and KW beside the current ones on one NVIDIA
-GPU, and the device's idle share over the HiFi asm.
+"""Time a parent commit's K1, KW, K3 and K4 beside the current ones on one
+NVIDIA GPU, and the device's idle share over the HiFi asm.
 
 Run from the root of a checkout, with the parent commit's package unpacked
 into a directory that .gitignore lists:
@@ -24,15 +24,18 @@ versions.
    three densities;
 2. KW on phase 3b's stream of 4,194,304 minimizers, dense at w = 16, 61
    and 123, shuffled at w = 16, and on (2^20, 24) row slices at w = 23;
-3. the HiFi asm of phase 4 (`asm --device cuda --threads 1`, the JAX
-   package refused) under torch.profiler, every K1 and KW launch recorded
-   as chip_smoke.py records them: the stage walls, the device's busy time
-   and idle share, the largest device-time entries and each kernel's
-   device time in its launches;
-4. the asm's own launches again: every K1 launch and the KW launches of
+3. K3 on phase 3d's groups and K4 on phase 3e's at band 62;
+4. the HiFi asm of phase 4 (`asm --device cuda --threads 1`, the JAX
+   package refused) under torch.profiler, every K1 and KW launch and the
+   K3 call recorded as chip_smoke.py records them: the stage walls, the
+   device's busy time and idle share, the largest device-time entries and
+   each kernel's device time in its launches;
+5. the asm's own launches again: every K1 launch and the KW launches of
    chip_smoke.kw_replay_set, with the sums of both sides' times and of the
-   bounds; and the host clock per hash_windows call of both wrappers on the
-   20 smallest KW launches.
+   bounds, and the K3 call; the host clock per hash_windows call of both
+   wrappers on the 20 smallest KW launches; and the ONT asm's K4 call where
+   chip_smoke.py phase 8 saved it in this checkout (chip_inputs/, so run
+   chip_smoke.py first in the same call).
 """
 
 import concurrent.futures
@@ -57,8 +60,8 @@ PARENT = "parent_port"
 
 
 def load_parent(root):
-    """(sketch, window_hash): the parent's kernel wrappers, from the
-    package in `root`, imported as `parent_port`."""
+    """(sketch, window_hash, chain, chain_dp): the parent's kernel wrappers,
+    from the package in `root`, imported as `parent_port`."""
     pkg = os.path.join(os.path.abspath(root), "metamdbg_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         PARENT, os.path.join(pkg, "__init__.py"),
@@ -66,8 +69,8 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[PARENT] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{PARENT}.kernels.sketch"),
-            importlib.import_module(f"{PARENT}.kernels.window_hash"))
+    return tuple(importlib.import_module(f"{PARENT}.kernels.{name}")
+                 for name in ("sketch", "window_hash", "chain", "chain_dp"))
 
 
 def turns(parent_fn, fn):
@@ -127,13 +130,54 @@ def kw_ab(what, pkw, cat, starts, w, normalize):
             cs.kw_launch_bound(cat.numel(), starts, w, normalize))
 
 
+def k3_ab(what, pk3, inputs, d_r_max):
+    """Both K3s on one call's inputs: equal outputs, or fail; returns
+    (parent ms, current ms, bound)."""
+    from metamdbg_tpu_torch.kernels import chain as kchain
+
+    runs = []
+    for mod in (pk3, kchain):
+        out = mod._launch(*inputs, d_r_max)
+        runs.append(((lambda mod=mod, out=out:
+                      mod._enqueue(*inputs, d_r_max, out)), out))
+    torch.cuda.synchronize()
+    (pfn, pout), (fn, out) = runs
+    if not (torch.equal(pout[0].view(torch.int32), out[0].view(torch.int32))
+            and all(torch.equal(a, b) for a, b in zip(pout[1:], out[1:]))):
+        cs.fail(f"ab chain_contig {what}: the parent's kernel differs from "
+                f"the current one")
+    return (*turns(pfn, fn),
+            cs.chain_contig_bound(np.diff(inputs[4].cpu().numpy())))
+
+
+def k4_ab(what, pk4, kin, band):
+    """Both K4s on one call's int32 inputs: equal outputs, or fail; returns
+    (parent ms, current ms, bound)."""
+    from metamdbg_tpu_torch.kernels import chain_dp as k4
+
+    runs = []
+    for mod in (pk4, k4):
+        out = mod._launch(*kin, band)
+        runs.append(((lambda mod=mod, out=out:
+                      mod._enqueue(*kin, band, out)), out))
+    torch.cuda.synchronize()
+    (pfn, pout), (fn, out) = runs
+    if not all(torch.equal(getattr(pout, f).view(torch.int32),
+                           getattr(out, f).view(torch.int32))
+               for f in cs.K4_FIELDS):
+        cs.fail(f"ab chain_dp {what}: the parent's kernel differs from the "
+                f"current one")
+    return (*turns(pfn, fn),
+            cs.chain_dp_bound(np.diff(kin[4].cpu().numpy()), band))
+
+
 def _line(what, p_ms, ms, b):
     return (f"{what}: parent {p_ms:.4f} ms, current {ms:.4f} ms "
             f"({ms / p_ms - 1:+.1%}), bound {b[0]:.4f} ms ({b[1]}): "
             f"{b[0] / ms:.1%} of the bound (parent {b[0] / p_ms:.1%})")
 
 
-def synthetic_phase(dev, pk1, pkw):
+def synthetic_phase(dev, pk1, pkw, pk3, pk4):
     for i in range(len(cs.DENSITIES)):
         codes, density, cap = cs.k1_case(i, dev)
         what = f"(512, 16384) l={cs.L_MIN} density={density}"
@@ -156,6 +200,28 @@ def synthetic_phase(dev, pk1, pkw):
     for what, c, starts, w, normalize in shapes:
         print(f"ab window_hash {starts.numel()} windows " + _line(
             what, *kw_ab(what, pkw, c, starts, w, normalize)))
+    from metamdbg_tpu_torch.basespace.contig_mapper import _d_r_max
+
+    rng = np.random.default_rng(400)
+    lengths = np.concatenate([rng.integers(2, cs.CHAIN_MAX_LEN + 1,
+                                           cs.CHAIN_GROUPS), cs.CHAIN_LONG])
+    rng.shuffle(lengths)
+    inputs = [torch.from_numpy(a).to(dev)
+              for a in cs.chain_groups(lengths, seed=401)]
+    d_r_max = _d_r_max(float(1.0 / np.float32(0.005)))
+    what = f"phase 3d's {lengths.size} groups"
+    print("ab chain_contig " + _line(what, *k3_ab(what, pk3, inputs,
+                                                  d_r_max)))
+    rng = np.random.default_rng(500)
+    lengths = np.concatenate([rng.integers(3, cs.CHAIN_DP_MAX_LEN + 1,
+                                           cs.CHAIN_DP_GROUPS),
+                              cs.CHAIN_LONG])
+    rng.shuffle(lengths)
+    kin = cs._k4_inputs([torch.from_numpy(a).to(dev)
+                         for a in cs.chain_dp_groups(lengths, seed=501)])
+    what = f"phase 3e's {lengths.size} groups, band {cs.CHAIN_DP_TIMED}"
+    print("ab chain_dp " + _line(what, *k4_ab(what, pk4, kin,
+                                              cs.CHAIN_DP_TIMED)))
 
 
 def profile_summary(prof, wall):
@@ -181,9 +247,10 @@ def profile_summary(prof, wall):
 
 
 def asm_phase(work, dev, fq):
-    """The HiFi asm under torch.profiler; returns the recorded (KW, K1)
-    launches."""
+    """The HiFi asm under torch.profiler; returns the recorded (KW, K1,
+    K3) launches."""
     from metamdbg_tpu_torch.__main__ import main
+    from metamdbg_tpu_torch.kernels import chain as kchain
     from metamdbg_tpu_torch.kernels import sketch as ksketch
     from metamdbg_tpu_torch.kernels import window_hash as kw
 
@@ -191,7 +258,8 @@ def asm_phase(work, dev, fq):
     os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    with cs.LaunchRecorder(kw) as kw_rec, cs.LaunchRecorder(ksketch) as k1_rec:
+    with cs.LaunchRecorder(kw) as kw_rec, cs.LaunchRecorder(ksketch) as \
+            k1_rec, cs.LaunchRecorder(kchain) as k3_rec:
         prof.start()
         t0 = time.perf_counter()
         rc = main(["asm", "--out-dir", out, "--in-hifi", fq, "--device",
@@ -204,12 +272,13 @@ def asm_phase(work, dev, fq):
     for name, dt in walls.items():
         print(f"ab asm stage {name}: {dt:.2f} s")
     print(f"ab asm: wall {wall:.1f} s under torch.profiler, peak RSS {rss}; "
-          f"{len(kw_rec.calls)} KW and {len(k1_rec.calls)} K1 launches")
+          f"{len(kw_rec.calls)} KW, {len(k1_rec.calls)} K1 and "
+          f"{len(k3_rec.calls)} K3 launches")
     profile_summary(prof, wall)
-    return kw_rec.calls, k1_rec.calls
+    return kw_rec.calls, k1_rec.calls, k3_rec.calls
 
 
-def replay_phase(kw_calls, k1_calls, pk1, pkw):
+def replay_phase(kw_calls, k1_calls, k3_calls, pk1, pkw, pk3, pk4):
     from metamdbg_tpu_torch.kernels import window_hash as kw
 
     sums = [0.0, 0.0, 0.0]
@@ -242,6 +311,23 @@ def replay_phase(kw_calls, k1_calls, pk1, pkw):
           f"{len(small[:20])} smallest launches (< {cs.KW_BINS[2]} windows): "
           f"parent {statistics.mean(host['parent']):.4f} ms, current "
           f"{statistics.mean(host['current']):.4f} ms")
+    for i, (args, _) in enumerate(k3_calls):
+        sizes = np.diff(args[4].cpu().numpy())
+        what = (f"the asm's call {i} ({sizes.size} groups, {int(sizes.sum())} "
+                f"anchors, longest {int(sizes.max())})")
+        print("ab chain_contig " + _line(what, *k3_ab(what, pk3, args[:5],
+                                                      args[5])))
+    if os.path.exists(cs.CHAIN_DP_SAVED):
+        saved = torch.load(cs.CHAIN_DP_SAVED)
+        kin = [t.cuda() for t in saved["inputs"]]
+        sizes = np.diff(saved["inputs"][4].numpy())
+        what = (f"the ONT asm's call ({sizes.size} groups, {int(sizes.sum())} "
+                f"anchors, longest {int(sizes.max())}, band {saved['band']})")
+        print("ab chain_dp " + _line(what, *k4_ab(what, pk4, kin,
+                                                  saved["band"])))
+    else:
+        print(f"ab chain_dp: no saved ONT asm call ({cs.CHAIN_DP_SAVED}); "
+              f"run chip_smoke.py first")
 
 
 def main():
@@ -252,18 +338,18 @@ def main():
     work = tempfile.mkdtemp(prefix="kernel_ab_")
     job = cs.reads_start(work, "hifi")
     try:
-        pk1, pkw = load_parent(sys.argv[1])
+        parent = load_parent(sys.argv[1])
         sys.meta_path.insert(0, cs._RefuseJaxPackage())
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            parent_builds = [pool.submit(m._lib) for m in (pk1, pkw)]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            parent_builds = [pool.submit(m._lib) for m in parent]
             cs.build_phase()
             for b in parent_builds:
                 b.result()
-        print(f"ab: the parent's sketch and window_hash kernels built from "
-              f"{sys.argv[1]}")
-        synthetic_phase(dev, pk1, pkw)
+        print(f"ab: the parent's sketch, window_hash, chain_contig and "
+              f"chain_dp kernels built from {sys.argv[1]}")
+        synthetic_phase(dev, *parent)
         fq = cs.reads_wait(job, "ab")
-        replay_phase(*asm_phase(work, dev, fq), pk1, pkw)
+        replay_phase(*asm_phase(work, dev, fq), *parent)
     finally:
         if job[1].poll() is None:
             job[1].kill()

@@ -1,23 +1,31 @@
-"""Time variants of the port's K1 or KW source beside the committed one.
+"""Time variants of a port kernel's source beside the committed one.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py sketch \
         "threads 256=constexpr int kThreads = 128;=>constexpr int kThreads = 256;"
+    python3 tools/kernel_variants.py chain_dp \
+        "team 1=constexpr int kTeam = 8;=>constexpr int kTeam = 1;"
 
 Each variant is NAME=OLD=>NEW[;;OLD=>NEW...]: text replacements applied to
-metamdbg_tpu_torch/csrc/<kernel>.cu (each OLD must occur exactly once).
-Every variant and the committed source are built with the port's nvcc
-flags into a temporary directory, held bit-identical to the plain torch
-version, and timed with chip_smoke.py's method (CUDA events around 20
-back-to-back launches on outputs allocated once, the median of 3) in turns,
-committed source first and last, on phase 3's inputs: K1 at (512, 16384),
+metamdbg_tpu_torch/csrc/<kernel>.cu (each OLD must occur exactly once;
+the shared headers, csrc/*.cuh, are included as they are). Every variant
+and the committed source are built with the port's nvcc flags into a
+temporary directory, held bit-identical to the plain torch version, and
+timed with chip_smoke.py's method (CUDA events around 20 back-to-back
+launches on outputs allocated once, the median of 3) in turns, committed
+source first and last, on phase 3's inputs: K1 at (512, 16384),
 l = 15 and densities 0.005 and 0.1; KW on 4,194,304 windows at w = 4, 16,
 40 and 123 (dense), shuffled at w = 16 and with per-window widths 1..16,
 on (2^20, 24) row slices, on 24,576 windows at w = 32 (a launch of the
 ladder's size), on 4,000 whole unitigs of up to 20,000 words, and on the
 planes of a ladder (10,000 reads of ~60 minimizers at w = 4..123, 120
-launches, timed as a sum). Every build is launched through the wrapper's
+launches, timed as a sum); K3 (chain_contig) on phase 3d's groups and on
+groups shaped like toBasespace's call (10,180 of 2-77 anchors); K4
+(chain_dp) on 100,000 of phase 3e's groups plus a 10,003-anchor one at
+band 62, and on the ONT asm's own call where chip_smoke.py saved it
+(chip_inputs/chain_dp_main.pt), else on groups of its shape (666,780 of
+3-36 anchors). Every build is launched through the wrapper's
 own `_enqueue`, with its `_lib` pointing at the build and the wrapper's
 `_bind` declaring the C interface, so a variant keeps the committed
 source's interface. Prints one line per variant and shape, and `-Xptxas
@@ -40,8 +48,13 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 from metamdbg_tpu_torch.kernels import build  # noqa: E402
+from metamdbg_tpu_torch.kernels import chain as kchain  # noqa: E402
+from metamdbg_tpu_torch.kernels import chain_dp as k4  # noqa: E402
 from metamdbg_tpu_torch.kernels import sketch as ksketch  # noqa: E402
 from metamdbg_tpu_torch.kernels import window_hash as kw  # noqa: E402
+
+MODULES = {"sketch": ksketch, "window_hash": kw, "chain_contig": kchain,
+           "chain_dp": k4}
 
 
 def _build(module, name, text, work):
@@ -49,8 +62,8 @@ def _build(module, name, text, work):
     with open(src, "w") as f:
         f.write(text)
     out = os.path.join(work, f"lib{name}.so")
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-           src]
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
+           "-I", build.CSRC_DIR, "-o", out, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
@@ -149,15 +162,75 @@ def _kw_launch(c, starts, w, normalize):
     return check, (c, starts, w, normalize, out, token)
 
 
+def _chain_contig_cases(dev):
+    from metamdbg_tpu_torch.basespace.contig_mapper import _d_r_max
+
+    d_r_max = _d_r_max(float(1.0 / np.float32(0.005)))
+    rng = np.random.default_rng(6)
+    shapes = [
+        ("phase 3d", np.concatenate([rng.integers(2, cs.CHAIN_MAX_LEN + 1,
+                                                  cs.CHAIN_GROUPS),
+                                     cs.CHAIN_LONG])),
+        ("toBasespace-shaped 10,180 groups of 2-77",
+         rng.integers(2, 78, 10_180))]
+    for what, lengths in shapes:
+        inputs = [torch.from_numpy(a).to(dev)
+                  for a in cs.chain_groups(lengths, seed=7)]
+        ref = kchain.chain_contig_reference(*inputs, d_r_max)
+        out = kchain._launch(*inputs, d_r_max)
+
+        def check(out=out, ref=ref):
+            return torch.equal(out[0].view(torch.int32),
+                               ref[0].view(torch.int32)) and all(
+                torch.equal(a, b) for a, b in zip(out[1:], ref[1:]))
+        yield what, [(check, (*inputs, d_r_max, out))]
+
+
+def _chain_dp_cases(dev):
+    rng = np.random.default_rng(8)
+    main_path = cs.CHAIN_DP_SAVED
+    shapes = [("100,000 phase 3e groups + 10,003 anchors, band 62",
+               np.concatenate([rng.integers(3, cs.CHAIN_DP_MAX_LEN + 1,
+                                            100_000), [10_000]]), 62)]
+    if not os.path.exists(main_path):
+        shapes.append(("ONT-shaped 666,780 groups of 3-36, band 62",
+                       np.minimum(rng.geometric(1 / 6.3, 666_780) + 2, 36),
+                       62))
+    for what, lengths, band in shapes:
+        arrays = cs.chain_dp_groups(lengths, seed=9)
+        yield what, [_chain_dp_launch(
+            cs._k4_inputs([torch.from_numpy(a).to(dev) for a in arrays]),
+            band)]
+    if os.path.exists(main_path):
+        saved = torch.load(main_path)
+        yield (f"the ONT asm's call, band {saved['band']}",
+               [_chain_dp_launch([t.to(dev) for t in saved["inputs"]],
+                                 saved["band"])])
+
+
+def _chain_dp_launch(kin, band):
+    """(check, _enqueue's arguments) of one K4 launch into a fresh output."""
+    ref = k4.chain_dp_reference(*kin, band)
+    out = k4._launch(*kin, band)
+
+    def check():
+        return torch.equal(out.scores.view(torch.int32),
+                           ref.scores.view(torch.int32)) and all(
+            torch.equal(getattr(out, f), getattr(ref, f))
+            for f in ("parents", "best_index", "chain_len", "chain_score",
+                      "chain_pos"))
+    return check, (*kin, band, out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("sketch", "window_hash"))
+    ap.add_argument("kernel", choices=tuple(MODULES))
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    module = ksketch if args.kernel == "sketch" else kw
+    module = MODULES[args.kernel]
     text = open(os.path.join(build.CSRC_DIR, f"{args.kernel}.cu")).read()
     work = tempfile.mkdtemp(prefix="variants_")
     libs = {"committed": _build(module, "committed", text, work)}
@@ -170,7 +243,9 @@ def main():
                 sys.exit(f"{name}: {old!r} occurs {vtext.count(old)} times")
             vtext = vtext.replace(old, new)
         libs[name] = _build(module, name.replace(" ", "_"), vtext, work)
-    cases = _k1_cases(dev) if args.kernel == "sketch" else _kw_cases(dev)
+    cases = {"sketch": _k1_cases, "window_hash": _kw_cases,
+             "chain_contig": _chain_contig_cases,
+             "chain_dp": _chain_dp_cases}[args.kernel](dev)
     for what, launches in cases:
         runners = {name: _runner(module, lib, launches)
                    for name, lib in libs.items()}
