@@ -84,6 +84,21 @@ Phases, each of which exits non-zero when it fails:
    to the plain version, with the host ms per chain_dp call; those inputs
    are saved to chip_inputs/chain_dp_main.pt for tools/kernel_ab.py and
    tools/kernel_variants.py.
+4b. `gfa` and `map` on phase 4's output, through the port's entry point in
+   this process, the JAX package refused: `gfa OUT 0` (the listing), `gfa
+   OUT K --coverage --readpath` and `map OUT K --references genome.fasta`,
+   K the largest saved k, genome.fasta phase 4's genome (seed 1) as
+   multi-line FASTA. The launch counts are set to 0 before each run and
+   read after it: the sketch kernel (the unitig sketch, trim 0, and the
+   tiler's read sketches; the reference sketch) and the window hash kernel
+   (the k-min-mer keys) must have launched in both `gfa` and `map`, the
+   chain kernels not at all. Their sketch and window hash launches are
+   kept and, after the runs, launched again and held bit-identical to the
+   plain versions (tolerance 0). Prints each subcommand's wall, the
+   unitigs, S and L lines, the coloured unitigs and the launches;
+8b. the same on phase 8's output at the smallest saved k (the most
+   unitigs), `map` with phase 8's three genomes as two FASTA files, the
+   first holding two records.
 
 The references run the JAX package's stages through
 tests/jax_reference.py, host-only with jax imports blocked, each in its own
@@ -107,7 +122,15 @@ subprocess, all four at once:
    thread, on the ONT reads of phase 8: read_data_init.txt, read_stats.txt,
    repetitiveMinimizers.bin, readAlignmentsLowDensity.bin and
    read_data_corrected.txt must be byte-identical, and the logged
-   correction checksums equal.
+   correction checksums equal;
+10. gfa and map references: the JAX package's `gfa OUT 0`, `gfa OUT K
+   --coverage --readpath` and `map OUT K --references ...` on a copy of
+   each output directory's inputs (started as soon as the asm has written
+   them, beside the running phases): the listing and every file written
+   (assemblyGraph_k<K>.gfa, .noseq.gfa, _contigPath.tsv, _contigNames.csv,
+   _readPath.tsv, .contigColor.csv, .contigName.csv) must be
+   byte-identical to phases 4b and 8b's. Prints the JAX walls beside the
+   port's (host numpy against the port on the card, one thread each).
 
 The line before the last two is a JSON object describing each kernel: its
 launches in phase 4 (K4's in phase 8), its largest difference from the
@@ -116,16 +139,21 @@ plain version, its time and the plain version's (phase 3 at density
 take for the same work on those inputs (the larger of bytes over the
 memory rate and operations over the peak rates), with what bounds it, and
 the main path's own launches timed again: `main_path_ms` and
-`main_path_bound_ms` summed over `main_path_launches_timed` of them. The
-line before the last is the card's nvidia-smi name and power limit; the
-last is {"ok": true, "device": {...}}.
+`main_path_bound_ms` summed over `main_path_launches_timed` of them; the
+sketch and window hash kernels' entries add `gfa_map_launches`, their
+launches in each `gfa` and `map` run of phases 4b and 8b and the largest
+difference from the plain version on their replay. The line before the
+last is the card's nvidia-smi name and power limit; the last is
+{"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import contextlib
 import glob
 import gzip
 import hashlib
 import importlib.abc
+import io
 import json
 import os
 import re
@@ -184,6 +212,13 @@ CORRECTION_OUTPUTS = ("read_data_init.txt", "read_stats.txt",
                       "repetitiveMinimizers.bin",
                       "readAlignmentsLowDensity.bin",
                       "read_data_corrected.txt")
+# what `gfa` and `map` read from an output's tmp/ (and its pass_k*/), and
+# the files they write in it (assemblyGraph_k<K> + suffix)
+GFA_INPUTS = ("parameters.gz", "input.txt", "read_data_init.txt",
+              "repetitiveMinimizers.bin", "kminmerData_abundance_init.txt",
+              "contig_data_final.bin")
+GFA_OUTPUTS = (".gfa", ".noseq.gfa", "_contigPath.tsv", "_contigNames.csv",
+               "_readPath.tsv", ".contigColor.csv", ".contigName.csv")
 
 # The least time for a kernel's work: one H100 SXM at its full 700 W
 # (NVIDIA's H100 data sheet). 32-bit integer work (the CUDA programming
@@ -1139,6 +1174,23 @@ def kw_replay(calls):
     return sums[0], sums[1], len(keep)
 
 
+def _k1_check(what, codes, l, density, cap):
+    """One recorded K1 launch again, against its plain version:
+    bit-identical, or fail. Returns the kernel's outputs."""
+    from metamdbg_tpu_torch.kernels import sketch as ksketch
+
+    got = ksketch._launch(codes, l, density, cap)
+    ref = ksketch.sketch_tiles_reference(codes, l, density, cap)
+    if not torch.equal(got[3], ref[3]):
+        fail(f"{what}: counts differ from plain")
+    live = (torch.arange(cap, device=codes.device)[None, :]
+            < ref[3].to(torch.int64).clamp(max=cap)[:, None])
+    for g, w in zip(got[:3], ref[:3]):
+        if not torch.equal(g.to(torch.int64)[live], w.to(torch.int64)[live]):
+            fail(f"{what} differs from plain")
+    return got
+
+
 def k1_replay(calls):
     """Phase 4's K1 launches, checked against the plain version and timed
     again. Returns (sum of ms, sum of bound ms, launches)."""
@@ -1147,16 +1199,7 @@ def k1_replay(calls):
     sums = [0.0, 0.0]
     by_density = {}
     for (codes, l, density, cap), _ in calls:
-        got = ksketch._launch(codes, l, density, cap)
-        ref = ksketch.sketch_tiles_reference(codes, l, density, cap)
-        if not torch.equal(got[3], ref[3]):
-            fail("main-path sketch launch: counts differ from plain")
-        live = (torch.arange(cap, device=codes.device)[None, :]
-                < ref[3].to(torch.int64).clamp(max=cap)[:, None])
-        for g, w in zip(got[:3], ref[:3]):
-            if not torch.equal(g.to(torch.int64)[live],
-                               w.to(torch.int64)[live]):
-                fail("main-path sketch launch differs from plain")
+        got = _k1_check("main-path sketch launch", codes, l, density, cap)
         ms = _time_ms(lambda: ksketch._enqueue(codes, l, density, cap, got))
         b_ms = k1_bound(codes.shape[0], codes.shape[1], l, cap)[0]
         d = by_density.setdefault(density, [0, 0.0, 0.0])
@@ -1436,11 +1479,13 @@ def correction_reference_phase(ref, job, out):
     print(f"correction reference: checksum {want} equal")
 
 
-def _jax_reference(work, phase, *args):
+def _jax_reference(work, phase, *args, tag=None):
     """Starts tests/jax_reference.py PHASE ARGS; its output goes to files
-    in `work`. Returns (process, stdout path, stderr path, start time)."""
+    in `work` named after `tag` (default PHASE). Returns (process, stdout
+    path, stderr path, start time)."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    paths = [os.path.join(work, f"jax_{phase}.{s}") for s in ("out", "err")]
+    paths = [os.path.join(work, f"jax_{tag or phase}.{s}")
+             for s in ("out", "err")]
     with open(paths[0], "w") as out, open(paths[1], "w") as err:
         proc = subprocess.Popen([sys.executable, JAX_REFERENCE, phase,
                                  *args], cwd=REPO, env=env, stdout=out,
@@ -1543,11 +1588,156 @@ def basespace_reference_phase(ref, job, out):
           f"and {len(a)} gzip bytes outside the write time)")
 
 
-def _kernel_line(name, source, replaces, launches, result, main_path):
+def _write_fasta(path, records, width=80):
+    with open(path, "w") as f:
+        for name, seq in records:
+            text = seq.tobytes().decode()
+            f.write(f">{name}\n" + "".join(
+                text[i:i + width] + "\n"
+                for i in range(0, len(text), width)))
+    return path
+
+
+def write_references(work, kind, genome_len=GENOME_LEN):
+    """The `map` references, made with tests/datagen.py from the inputs'
+    seeds: `hifi`, phase 4's genome as one multi-line FASTA; `ont`, phase
+    8's three genomes as two FASTA files, the first holding two records."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import datagen
+
+    if kind == "hifi":
+        return [_write_fasta(os.path.join(work, "genome.fasta"), [
+            ("genome", datagen.random_genome(int(genome_len), seed=1))])]
+    g = datagen.make_metagenome(n_genomes=3, sizes=list(ONT_SIZES), seed=40)
+    return [_write_fasta(os.path.join(work, "ont_genomes_a.fasta"),
+                         [("g0", g[0]), ("g1", g[1])]),
+            _write_fasta(os.path.join(work, "ont_genomes_b.fasta"),
+                         [("g2", g[2])])]
+
+
+def saved_ks(out):
+    from metamdbg_tpu_torch.pipeline.gfa import available_ks
+
+    ks = available_ks(os.path.join(out, "tmp"))
+    if not ks:
+        fail(f"no assembly graph saved in {out}")
+    return ks
+
+
+def gfa_map_phase(tag, dev, out, k, refs):
+    """Phases 4b and 8b: `gfa OUT 0`, `gfa OUT K --coverage --readpath` and
+    `map OUT K --references REFS` through the port's entry point in this
+    process. Returns (the listing, walls, launches per run, max abs
+    difference of the replayed launches from plain)."""
+    from metamdbg_tpu_torch.__main__ import main
+    from metamdbg_tpu_torch.kernels import chain as kchain
+    from metamdbg_tpu_torch.kernels import chain_dp as k4
+    from metamdbg_tpu_torch.kernels import sketch as ksketch
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    kernels = {"sketch_kernel": ksketch, "window_hash_kernel": kw,
+               "chain_kernel": kchain, "chain_dp_kernel": k4}
+    runs = (("gfa0", ["gfa", out, "0"]),
+            ("gfa", ["gfa", out, str(k), "--coverage", "--readpath"]),
+            ("map", ["map", out, str(k), "--references", *refs]))
+    listing = io.StringIO()
+    walls, launches = {}, {}
+    with LaunchRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
+        for name, args in runs:
+            for m in kernels.values():
+                m.reset_counts()
+            t0 = time.perf_counter()
+            with (contextlib.redirect_stdout(listing) if name == "gfa0"
+                  else contextlib.nullcontext()):
+                rc = main([*args, "--device", dev.type])
+            walls[name] = time.perf_counter() - t0
+            launches[name] = {n: m.launches for n, m in kernels.items()}
+            if rc != 0:
+                fail(f"{tag} {name} returned {rc}")
+    for name in ("gfa", "map"):
+        n = launches[name]
+        if n["chain_kernel"] or n["chain_dp_kernel"]:
+            fail(f"{tag} {name} launched a chain kernel: {n}")
+        if dev.type == "cuda" and (n["sketch_kernel"] < 1 or
+                                   n["window_hash_kernel"] < 1):
+            fail(f"{tag} {name} did not launch both the sketch and the "
+                 f"window hash kernels: {n}")
+    prefix = os.path.join(out, f"assemblyGraph_k{k}")
+    lines = open(prefix + ".gfa").read().splitlines()
+    with open(os.path.join(out, "tmp", f"pass_k{k}",
+                           "assembly_graph.gfa")) as f:
+        n_unitigs = sum(line.startswith("S\t") for line in f)
+    with open(prefix + ".contigColor.csv") as f:
+        coloured = len(f.readlines()) - 1
+    print(f"{tag} gfa/map: k={k}; walls gfa 0 {walls['gfa0']:.2f} s, gfa "
+          f"--coverage --readpath {walls['gfa']:.2f} s, map "
+          f"{walls['map']:.2f} s; {n_unitigs} unitigs, "
+          f"{sum(x.startswith('S') for x in lines)} S lines, "
+          f"{sum(x.startswith('L') for x in lines)} L lines; {coloured} "
+          f"unitigs coloured by {len(refs)} reference file(s); launches "
+          f"{launches}")
+    total = sum(launches[n]["sketch_kernel"] for n in launches), \
+        sum(launches[n]["window_hash_kernel"] for n in launches)
+    if (len(k1_rec.calls), len(kw_rec.calls)) != total:
+        fail(f"{tag}: recorded {len(k1_rec.calls)} sketch and "
+             f"{len(kw_rec.calls)} KW launches, counted {total}")
+    err = 0
+    if dev.type == "cuda":
+        for i, ((codes, l, density, cap), _) in enumerate(k1_rec.calls):
+            _k1_check(f"{tag} gfa/map sketch launch {i}", codes, l, density,
+                      cap)
+        for i, ((cat, starts, w, normalize), _) in enumerate(kw_rec.calls):
+            err = max(err, _kw_check(f"{tag} gfa/map launch {i}", cat,
+                                     starts, w, normalize))
+        print(f"{tag} gfa/map: {total[0]} sketch and {total[1]} window hash "
+              f"launches again after the runs: bit-identical to plain")
+    return listing.getvalue(), walls, launches, err
+
+
+def gfa_reference_start(work, tag, out, k, refs):
+    """A copy of what `gfa` and `map` read from `out`; the JAX package's
+    gfa and map on it."""
+    ref = os.path.join(work, f"jax_gfa_{tag}")
+    os.makedirs(os.path.join(ref, "tmp"))
+    for name in GFA_INPUTS:
+        src = os.path.join(out, "tmp", name)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(ref, "tmp", name))
+    for d in glob.glob(os.path.join(out, "tmp", "pass_k*")):
+        shutil.copytree(d, os.path.join(ref, "tmp", os.path.basename(d)))
+    return ref, _jax_reference(work, "gfa", ref, str(k), *refs,
+                               tag=f"gfa_{tag}")
+
+
+def gfa_reference_phase(tag, ref, job, out, k, port):
+    """Phase 10: the JAX package's listing and files against the port's
+    (phases 4b and 8b)."""
+    listing, walls = port[:2]
+    stdout, _ = _wait(job, f"JAX package gfa and map ({tag})")
+    lines = stdout.splitlines(keepends=True)
+    want = json.loads(lines[-1])
+    if "".join(lines[:-1]) != listing:
+        fail(f"{tag} gfa 0: the listing differs from the JAX package's")
+    for suffix in GFA_OUTPUTS:
+        name = f"assemblyGraph_k{k}{suffix}"
+        a = open(os.path.join(ref, name), "rb").read()
+        b = open(os.path.join(out, name), "rb").read()
+        if a != b:
+            fail(f"{tag} {name} differs from the JAX package's")
+        print(f"gfa reference {tag}: {name} byte-identical ({len(a)} bytes)")
+    print(f"gfa reference {tag}: JAX package (host-only, jax blocked, one "
+          f"thread): listing identical; walls JAX / port: "
+          + ", ".join(f"{n} {want[n]:.2f} / {walls[n]:.2f} s"
+                      for n in ("gfa0", "gfa", "map")))
+
+
+def _kernel_line(name, source, replaces, launches, result, main_path,
+                 **extra):
     """One kernel's entry of the kernels line. `result`: max_abs_err,
     kernel ms, plain ms and bound on phase 3's inputs; `main_path`: the sum
     of the kernel's ms and of its bounds over the main path's launches
-    timed again after the run, and how many were timed."""
+    timed again after the run, and how many were timed; `extra`: more
+    keys."""
     err, ms, plain_ms, (bound_ms, bound_by) = result
     main_ms, main_bound_ms, main_timed = main_path[:3]
     # no single PyTorch call computes any of these functions
@@ -1556,7 +1746,7 @@ def _kernel_line(name, source, replaces, launches, result, main_path):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "main_path_ms": main_ms, "main_path_bound_ms": main_bound_ms,
-            "main_path_launches_timed": main_timed}
+            "main_path_launches_timed": main_timed, **extra}
 
 
 def main():
@@ -1581,15 +1771,28 @@ def main():
         rs_ref, rs_job = read_selection_reference_start(work, fq)
         graph_job = graph_reference_start(work, out, params_dir, digests)
         bs_ref, bs_job = basespace_reference_start(work, fq, out)
-        jobs += [rs_job, graph_job, bs_job]
+        hifi_k, hifi_refs = saved_ks(out)[-1], write_references(work, "hifi")
+        hifi_gfa_ref, hifi_gfa_job = gfa_reference_start(
+            work, "hifi", out, hifi_k, hifi_refs)
+        jobs += [rs_job, graph_job, bs_job, hifi_gfa_job]
         ont_fq = reads_wait(ont_job, "ont")
         corr_ref, corr_job = correction_reference_start(work, ont_fq)
         jobs.append(corr_job)
+        hifi_gfa = gfa_map_phase("hifi", dev, out, hifi_k, hifi_refs)
         ont_out, k4_launches, k4_main = ont_phase(work, dev, ont_fq)
+        ont_k, ont_refs = saved_ks(ont_out)[0], write_references(work, "ont")
+        ont_gfa_ref, ont_gfa_job = gfa_reference_start(
+            work, "ont", ont_out, ont_k, ont_refs)
+        jobs.append(ont_gfa_job)
+        ont_gfa = gfa_map_phase("ont", dev, ont_out, ont_k, ont_refs)
         reference_phase(rs_ref, rs_job, out)
         graph_reference_phase(graph_job, digests)
         basespace_reference_phase(bs_ref, bs_job, out)
         correction_reference_phase(corr_ref, corr_job, ont_out)
+        gfa_reference_phase("hifi", hifi_gfa_ref, hifi_gfa_job, out, hifi_k,
+                            hifi_gfa)
+        gfa_reference_phase("ont", ont_gfa_ref, ont_gfa_job, ont_out, ont_k,
+                            ont_gfa)
     finally:
         for proc, *_ in jobs:
             if proc.poll() is None:
@@ -1600,16 +1803,26 @@ def main():
     k1 = kern[DENSITIES[0]]
     k1_err = max(r["err"] for r in kern.values())
     kw_main, k1_main = main_path["window_hash"], main_path["sketch_tiles"]
+
+    def gfa_map_launches(kernel):
+        """The kernel's launches in phases 4b and 8b, and the largest
+        difference from plain on their replay."""
+        runs = {tag: {name: r[2][name][kernel] for name in ("gfa", "map")}
+                for tag, r in (("hifi", hifi_gfa), ("ont", ont_gfa))}
+        return {**runs, "max_abs_err": max(hifi_gfa[3], ont_gfa[3])}
+
     print(json.dumps({"kernels": [
         _kernel_line("sketch_tiles", "metamdbg_tpu_torch/csrc/sketch.cu",
                      "metamdbg_tpu/kernels/sketch_pallas.py:49",
                      launches[0], (k1_err, k1["ms"], k1["plain_ms"],
-                                   k1["bound"]), k1_main),
+                                   k1["bound"]), k1_main,
+                     gfa_map_launches=gfa_map_launches("sketch_kernel")),
         _kernel_line("window_hash", "metamdbg_tpu_torch/csrc/window_hash.cu",
                      "metamdbg_tpu/parallel/count_table.py:29 + "
                      "native/sketch.cpp:523", launches[1],
                      (kw_result["err"], kw_result["ms"],
-                      kw_result["plain_ms"], kw_result["bound"]), kw_main),
+                      kw_result["plain_ms"], kw_result["bound"]), kw_main,
+                     gfa_map_launches=gfa_map_launches("window_hash_kernel")),
         _kernel_line("chain_contig",
                      "metamdbg_tpu_torch/csrc/chain_contig.cu",
                      "metamdbg_tpu/kernels/chain_jax.py:131",

@@ -1,9 +1,11 @@
-"""CLI: ``python -m metamdbg_tpu_torch asm --out-dir DIR --in-hifi reads.fastq.gz``.
+"""CLI: ``python -m metamdbg_tpu_torch asm --out-dir DIR --in-hifi reads.fastq.gz``,
+``python -m metamdbg_tpu_torch gfa DIR [K]`` and
+``python -m metamdbg_tpu_torch map DIR K --references genome.fasta``.
 
-The `asm` subcommand of metamdbg_tpu with the same flags, plus
-``--device {cuda,cpu}`` (default cuda). `cuda` needs a usable NVIDIA GPU
-and raises at startup without one; `cpu` runs the kernels' plain torch
-versions. The `gfa` and `map` subcommands are not ported yet.
+The `asm`, `gfa` and `map` subcommands of metamdbg_tpu with the same
+arguments, plus ``--device {cuda,cpu}`` (default cuda) on each. `cuda`
+needs a usable NVIDIA GPU and raises at startup without one; `cpu` runs
+the kernels' plain torch versions. `asm` and `gfa` take ``--threads``.
 """
 
 import argparse
@@ -43,10 +45,46 @@ def main(argv=None):
     asm.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="where the ported stages run (default cuda)")
 
+    gfa = sub.add_parser("gfa", help="export assembly graphs")
+    gfa.add_argument("out_dir", help="assembly output dir (with tmp/)")
+    gfa.add_argument("k", type=int, nargs="?", default=0,
+                     help="k of the graph to export (0 = list available)")
+    gfa.add_argument("--output", default=None)
+    gfa.add_argument("--coverage", action="store_true",
+                     help="recompute unitig coverage")
+    gfa.add_argument("--readpath", action="store_true",
+                     help="generate path of reads in the assembly graph")
+    gfa.add_argument("--threads", "-t", type=int, default=1,
+                     help="threads of the native host libraries in the "
+                          "unitigs' read tiling")
+    gfa.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="where the kernels run (default cuda)")
+
+    mp = sub.add_parser("map", help="color an assembly graph by references")
+    mp.add_argument("out_dir", help="assembly output dir (with tmp/)")
+    mp.add_argument("k", type=int, help="k of the saved graph to color")
+    mp.add_argument("--references", nargs="+", required=True,
+                    help="reference genome fasta file(s)")
+    mp.add_argument("--output-prefix", default=None)
+    mp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the kernels run (default cuda)")
+
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+
+    if args.command == "gfa":
+        from metamdbg_tpu_torch.pipeline.gfa import run_gfa
+        run_gfa(args.out_dir, args.k, args.output,
+                recompute_coverage=args.coverage, read_path=args.readpath,
+                device=args.device, n_threads=max(1, args.threads))
+        return 0
+    if args.command == "map":
+        from metamdbg_tpu_torch.pipeline.mapref import run_map
+        run_map(args.out_dir, args.k, args.references, args.output_prefix,
+                device=args.device)
+        return 0
 
     if bool(args.in_hifi) == bool(args.in_ont):
         parser.error("choose exactly one of --in-hifi / --in-ont")

@@ -15,8 +15,8 @@ The port of metamdbg_tpu/basespace/reconstruct.py:run_to_basespace, with
 the JAX package's defaults (two polishing passes, then the refinement
 pass) and no knobs. The chain DP of step 1 runs on kernel K3 and every
 sketch on kernel K1, on `device`; the native engines run on `n_threads`
-threads, and nothing forks. `reconstruct_unpolished` (the `gfa`
-subcommand's drafts) is not ported yet.
+threads, and nothing forks. `reconstruct_unpolished` makes the `gfa`
+subcommand's drafts.
 """
 
 import logging
@@ -36,6 +36,30 @@ from .contig_mapper import map_reads_to_contigs
 log = logging.getLogger("metamdbg_tpu_torch")
 
 POLISH_PASSES = 2
+
+
+def reconstruct_unpolished(minimizers, is_circular, alignments, read_seqs,
+                           avg_dist: float, device, n_threads: int = 1):
+    """Unpolished draft sequence of one minimizer-space contig/unitig via
+    verified read tiling (ToBasespaceGfa's role: raw sequences for GFA
+    S-lines, src/toBasespace/ToBasespaceGfa.hpp:280). alignments:
+    tiling.Mapping list; read_seqs: read_index -> forward-strand uint8.
+    The port of metamdbg_tpu/basespace/reconstruct.py:reconstruct_unpolished;
+    the tiler's read sketches run on kernel K1 on `device`."""
+    reads = {}
+    for al in alignments:
+        seq = read_seqs.get(al.read_index)
+        if seq is None:
+            continue
+        reads[al.read_index] = partition_mod.revcomp(seq) \
+            if al.is_reversed else seq
+    tiler = tiling.ContigTiler(reads, avg_dist, 1, device, n_threads)
+    pieces, _ = tiling.create_base_contig(
+        tiler, np.asarray(minimizers, np.uint32), is_circular,
+        [al for al in alignments if al.read_index in reads])
+    if not pieces:
+        return None
+    return np.concatenate([p[0] for p in pieces])
 
 
 def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,

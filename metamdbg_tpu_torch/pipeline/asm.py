@@ -42,6 +42,7 @@ from ..kernels import chain_dp as kchain_dp
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
+from . import open_device
 
 log = logging.getLogger("metamdbg_tpu_torch")
 
@@ -78,13 +79,7 @@ class Pipeline:
                  min_contig_length: int = 50, min_contig_coverage: float = 1.0,
                  skip_correction: bool = False,
                  all_assembly_graph: bool = False, n_threads: int = 1):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: torch.cuda.is_available() is "
-                               "False (no usable NVIDIA GPU); use --device "
-                               "cpu to run the plain torch versions")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device}")
+        self.device = open_device(device)
         native.build_all()
         self.out_dir = out_dir
         self.tmp_dir = os.path.join(out_dir, "tmp")

@@ -6,10 +6,12 @@ is split into segments overlapping by l-1 bases (the window sets of
 consecutive segments partition the read's windows exactly). Tiles go to
 the device as plain u8 in batches of TILE_ROWS rows, where
 kernels/sketch.py:sketch_tiles selects and compacts each row's minimizers.
-Back on the host, segments are stitched per read, the reference's 1-window
-read-end trim (MinimizerParser::_trimBps, src/utils/kmer/Kmer.hpp:1362,1395)
-is applied on read-local window indices, and then the repetitive-minimizer
-blacklist (the selected set is ~density * bases, so both are cheap).
+Back on the host, segments are stitched per read, the reference's read-end
+trim of `trim` windows (MinimizerParser::_trimBps, 1 by default,
+src/utils/kmer/Kmer.hpp:1362,1395; 0 in GenerateGfa's unitig parse,
+src/graph/GenerateGfa.hpp:366) is applied on read-local window indices, and
+then the repetitive-minimizer blacklist (the selected set is ~density *
+bases, so both are cheap).
 
 `tile_batches` counts the batches sent to the sketcher.
 """
@@ -29,12 +31,16 @@ tile_batches = 0
 class BatchSketcher:
     """Sketches many reads at once on `device`.
 
-    `repetitive` is a sorted u32 blacklist applied after compaction.
+    `repetitive` is a sorted u32 blacklist applied after compaction;
+    `trim` windows at each end of a read are never selected (the port of
+    metamdbg_tpu/sketch/minimizers.py:select_minimizers(..., trim=)).
     """
 
-    def __init__(self, l: int, density: float, repetitive, device):
+    def __init__(self, l: int, density: float, repetitive, device,
+                 trim: int = 1):
         self.l = l
         self.density = float(density)
+        self.trim = trim
         self.repetitive = repetitive if repetitive is not None and \
             repetitive.size else None
         self.device = torch.device(device)
@@ -131,10 +137,10 @@ class BatchSketcher:
                 pos = np.zeros(0, np.int64)
                 vals = np.zeros(0, MINIMIZER_DTYPE)
                 dd = np.zeros(0, np.uint8)
-            # _trimBps = 1: windows 0 and nk-1 of the whole read are never
-            # selected
+            # _trimBps: the first and last `trim` windows of the whole read
+            # are never selected
             nk_read = codes_list[i].shape[0] - self.l + 1
-            keep = (pos >= 1) & (pos < nk_read - 1)
+            keep = (pos >= self.trim) & (pos < nk_read - self.trim)
             pos, vals, dd = pos[keep], vals[keep], dd[keep]
             if self.repetitive is not None and vals.size:
                 j = np.searchsorted(self.repetitive, vals)

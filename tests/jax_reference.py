@@ -8,6 +8,7 @@ port's own process never imports `metamdbg_tpu`.
     python tests/jax_reference.py graph WORK PARAMS_DIR FIRST_K LAST_K
     python tests/jax_reference.py basespace WORK READS OUT_FASTA
     python tests/jax_reference.py correction READS OUT_DIR
+    python tests/jax_reference.py gfa OUT_DIR K REFERENCE...
 
 - `read_selection`: read selection (HiFi, the asm defaults) into OUT_DIR.
 - `graph`: the minimizer-space stages pass by pass in WORK, which holds
@@ -23,6 +24,11 @@ port's own process never imports `metamdbg_tpu`.
   then read correction on one thread with the parameters the asm gives it
   (pipeline/asm.py:make_params at the first k); prints one JSON object,
   {"checksum": the correction checksum}.
+- `gfa`: the `gfa` and `map` subcommands on OUT_DIR, an assembly output
+  directory (a copy: they write into it): `gfa OUT_DIR 0`, whose listing
+  goes to stdout, `gfa OUT_DIR K --coverage --readpath` and `map OUT_DIR K
+  --references REFERENCE...`; then prints one JSON object, each
+  subcommand's wall in seconds.
 """
 
 import importlib.abc
@@ -122,8 +128,24 @@ def correction(fq, out):
     print(json.dumps({"checksum": int(checksum)}))
 
 
+def gfa(out, k, *references):
+    import time
+
+    from metamdbg_tpu.__main__ import main
+
+    walls = {}
+    for name, args in (("gfa0", ["gfa", out, "0"]),
+                       ("gfa", ["gfa", out, k, "--coverage", "--readpath"]),
+                       ("map", ["map", out, k, "--references",
+                                *references])):
+        t0 = time.perf_counter()
+        main(args)
+        walls[name] = time.perf_counter() - t0
+    print(json.dumps(walls))
+
+
 PHASES = {"read_selection": read_selection, "graph": graph,
-          "basespace": basespace, "correction": correction}
+          "basespace": basespace, "correction": correction, "gfa": gfa}
 
 
 if __name__ == "__main__":

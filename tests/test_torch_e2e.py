@@ -222,21 +222,30 @@ def test_port_resumes_mid_ladder(jax_run, tmp_path, monkeypatch):
     assert track.count("k8_createGraph") == 1
 
 
-def test_device_cuda_without_gpu_fails(tmp_path):
-    """(c) --device cuda on a box with no GPU exits non-zero, clearly."""
+@pytest.mark.parametrize("command", ["asm", "gfa", "map"])
+def test_device_cuda_without_gpu_fails(tmp_path, command):
+    """(c) --device cuda on a box with no GPU exits non-zero, clearly, at
+    startup: `asm` writes no read data, and `gfa` and `map` fail before
+    they look at their output directory (here one that does not exist)."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU")
-    fq = str(tmp_path / "reads.fastq.gz")
-    datagen.make_test_fastq(fq, genome_len=5000, coverage=2,
-                            mean_length=2000, seed=3)
-    proc = run_port(["asm", "--out-dir", str(tmp_path / "out"),
-                     "--in-hifi", fq, "--device", "cuda"], timeout=120)
+    out = str(tmp_path / "out")
+    if command == "asm":
+        fq = str(tmp_path / "reads.fastq.gz")
+        datagen.make_test_fastq(fq, genome_len=5000, coverage=2,
+                                mean_length=2000, seed=3)
+        args = ["asm", "--out-dir", out, "--in-hifi", fq]
+    elif command == "gfa":
+        args = ["gfa", out, "5", "--coverage"]
+    else:
+        args = ["map", out, "5", "--references", str(tmp_path / "g.fa")]
+    proc = run_port([*args, "--device", "cuda"], timeout=120)
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
-    assert not os.path.exists(tmp_path / "out" / "tmp" /
-                              "read_data_init.txt")
+    assert not os.path.exists(os.path.join(out, "tmp",
+                                           "read_data_init.txt"))
 
 
 @pytest.mark.parametrize("platform", ["hifi", "ont"])
@@ -272,6 +281,8 @@ def test_port_modules_import_no_jax_package():
         metamdbg_tpu_torch.__path__, "metamdbg_tpu_torch."))
     assert "metamdbg_tpu_torch.kernels.chain_dp" in names
     assert "metamdbg_tpu_torch.correction.stage" in names
+    for name in ("pipeline.gfa", "pipeline.mapref", "io.gfa"):
+        assert "metamdbg_tpu_torch." + name in names
     assert "metamdbg_tpu_torch.bridge" not in names
     script = (
         "import importlib, importlib.abc, sys\n"
