@@ -131,8 +131,36 @@ subprocess, all four at once:
    _readPath.tsv, .contigColor.csv, .contigName.csv) must be
    byte-identical to phases 4b and 8b's. Prints the JAX walls beside the
    port's (host numpy against the port on the card, one thread each).
+11. two ranks on the one card (started when phase 8 ends, beside 8b, 11b
+   and the references): phase 8's ONT reads, not cut, through `asm
+   --in-ont --device cuda --threads 1` in two subprocesses, each with the
+   JAX package refused and `os.fork` raising, as ranks 0 and 1 of a
+   torch.distributed group over gloo (METAMDBG_TPU_DISTRIBUTED, a
+   localhost coordinator, METAMDBG_TPU_DIST_BACKEND=gloo: NCCL puts no two
+   ranks of one communicator on one GPU), one torch thread each, an out
+   dir each. Every stage of both must have run as port:cuda in a group of
+   2 over gloo, every kernel launched, and readCorrection's pair joins
+   (K6), the first pass's count (K5) and toBasespace's window POAs sharded
+   (tmp/device.json); phase 9's files, post-processing's and
+   toBasespace's artifacts, the first pass's kminmerData_abundance_init.txt
+   and contigs.fasta.gz (outside bytes 4-7) must be byte-identical on both
+   ranks to phase 8's. Prints per rank the stage walls, asm wall, peak
+   RSS, K5's and K6's shard sizes and the POA windows it polished;
+11b. NCCL on a one-rank group in this process: the sharded count table
+   (K5) on phase 8's first-pass reads at k = 4 and on ~50.7M synthetic
+   minimizers (the k = 4 table of a 10.14 Gbp HiFi run) in ~845k reads,
+   held against the single-device table (every window counted by K2, keys
+   by KW); the sharded pair join (K6) on phase 8's first correction chunk
+   (its table and query pairs, kept as phase 8 ran) and on a synthetic
+   table of 2^25 pairs with as many queries, held against the sorted
+   join; tolerance 0 (integers). Each step is timed with CUDA events on a
+   second call (hash, route, split exchange, row exchange, local
+   sort-count or join, gather, merge or expand) beside its bound, the
+   bytes it must move at the memory rate. The group is torn down after.
 
-The line before the last two is a JSON object describing each kernel: its
+The line before the last three is a JSON object with phases 11 and 11b's
+results ("sharded"). The line before the last two is a JSON object
+describing each kernel: its
 launches in phase 4 (K4's in phase 8), its largest difference from the
 plain version, its time and the plain version's (phase 3 at density
 0.005, 3b at w = 16, 3d, 3e), `bound_ms`, the least time the card could
@@ -1040,6 +1068,13 @@ def _contigs(out):
     return headers, lengths
 
 
+def _same_contigs(a_path, b_path):
+    a, b = open(a_path, "rb").read(), open(b_path, "rb").read()
+    # bytes 4-7 of a gzip header hold the write time
+    return gzip.decompress(a) == gzip.decompress(b) and \
+        a[:4] + a[8:] == b[:4] + b[8:]
+
+
 class LaunchRecorder:
     """Wraps a kernel module's `_launch` in this process, not in the
     package: keeps a copy of every launch's device inputs and the host
@@ -1355,8 +1390,11 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
 
 def ont_phase(work, dev, fq):
     """Phase 8: the ONT metagenome through `asm --in-ont --device cuda
-    --threads 1` in this process; returns (out dir, K4 launches)."""
+    --threads 1` in this process; returns (out dir, K4 launches, K4's
+    main-path times, the first correction chunk's (table pairs, query
+    pairs) as u64 bits for phase 11b)."""
     from metamdbg_tpu_torch.__main__ import main
+    from metamdbg_tpu_torch.correction import mapper
     from metamdbg_tpu_torch.kernels import chain as kchain
     from metamdbg_tpu_torch.kernels import chain_dp as k4
     from metamdbg_tpu_torch.kernels import sketch as ksketch
@@ -1372,7 +1410,18 @@ def ont_phase(work, dev, fq):
         calls.append(args)
         return chain_dp(*args)
 
+    joins = []
+    join = mapper._join
+
+    def record_join(pairs, query, t_lo, t_hi, group):
+        """Keeps the first chunk's table and query pairs (u64 bits)."""
+        if not joins:
+            joins.append((pairs["key"][t_lo:t_hi] ^ mapper._SIGN,
+                          query["key"] ^ mapper._SIGN))
+        return join(pairs, query, t_lo, t_hi, group)
+
     k4.chain_dp = record_chain_dp
+    mapper._join = record_join
     os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
     kernels = {"sketch_kernel": ksketch, "window_hash_kernel": kw,
                "chain_kernel": kchain, "chain_dp_kernel": k4}
@@ -1386,6 +1435,7 @@ def ont_phase(work, dev, fq):
         wall = time.perf_counter() - t0
     finally:
         k4.chain_dp = chain_dp
+        mapper._join = join
     launches = {name: k.launches for name, k in kernels.items()}
     if rc != 0:
         fail(f"ONT asm returned {rc}")
@@ -1450,7 +1500,7 @@ def ont_phase(work, dev, fq):
     if abs(total - ONT_TOTAL_LEN) > ONT_LEN_TOLERANCE * ONT_TOTAL_LEN:
         fail(f"ONT contigs total {total} bp, not within "
              f"{ONT_LEN_TOLERANCE:.0%} of {ONT_TOTAL_LEN}")
-    return out, launches["chain_dp_kernel"], k4_main
+    return out, launches["chain_dp_kernel"], k4_main, joins[0]
 
 
 def correction_reference_start(work, fq):
@@ -1578,14 +1628,12 @@ def basespace_reference_phase(ref, job, out):
             fail(f"{name} differs from the JAX package's")
         print(f"basespace reference: {name} byte-identical ({len(a)} "
               f"bytes)")
-    a = open(os.path.join(ref, "contigs.fasta.gz"), "rb").read()
-    b = open(os.path.join(out, "contigs.fasta.gz"), "rb").read()
-    # bytes 4-7 of a gzip header hold the write time
-    if gzip.decompress(a) != gzip.decompress(b) or \
-            a[:4] + a[8:] != b[:4] + b[8:]:
+    if not _same_contigs(os.path.join(ref, "contigs.fasta.gz"),
+                         os.path.join(out, "contigs.fasta.gz")):
         fail("contigs.fasta.gz differs from the JAX package's")
     print(f"basespace reference: contigs.fasta.gz identical (decompressed, "
-          f"and {len(a)} gzip bytes outside the write time)")
+          f"and {os.path.getsize(os.path.join(out, 'contigs.fasta.gz'))} "
+          f"gzip bytes outside the write time)")
 
 
 def _write_fasta(path, records, width=80):
@@ -1731,6 +1779,307 @@ def gfa_reference_phase(tag, ref, job, out, k, port):
                       for n in ("gfa0", "gfa", "map")))
 
 
+# phase 11: each rank is a subprocess with the JAX package and jax refused
+# and os.fork raising (tests/test_torch_e2e.py:_BLOCKED_LAUNCHER's manner)
+_RANK_LAUNCHER = """
+import importlib.abc, os, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "metamdbg_tpu"):
+            raise ImportError(name + " is refused in a rank")
+        return None
+sys.meta_path.insert(0, _Block())
+def _no_fork():
+    raise RuntimeError("the port forked")
+os.fork = _no_fork
+from metamdbg_tpu_torch.__main__ import main
+sys.exit(main(sys.argv[1:]))
+"""
+SHARDED_WORLD = 2
+SHARDED_STAGES = {"readCorrection": "pair_join",
+                  "k4_createGraph": "count_table", "toBasespace": "polish"}
+# phase 11b's synthetic inputs: the k = 4 table of the 10.14 Gbp HiFi run
+# (SCALE_r05.json hifi_10gbp: 10.14 Gbp x density 0.005 ~ 50.7M
+# minimizers) in reads of ~60 minimizers (12 kb HiFi reads at density
+# 0.005), sampled at 20x from minimizer "genomes", 1% of minimizers
+# replaced by errors; and a table of 2^25 u64 pairs with as many queries
+K5_SYNTH_MINIMIZERS, K5_SYNTH_MEAN, K5_SYNTH_COVERAGE = 50_700_000, 60, 20
+K6_SYNTH_PAIRS = 1 << 25
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_start(work, fq, dev):
+    """Phase 11: starts `asm --in-ont --device cuda --threads 1` on the ONT
+    reads as SHARDED_WORLD ranks of one group over gloo, all on this card,
+    each with its own out dir and one torch thread (as torchrun gives each
+    of several ranks on a host). Returns the ranks' (process, out dir,
+    log path, start time)."""
+    port = _free_port()
+    ranks = []
+    for rank in range(SHARDED_WORLD):
+        out = os.path.join(work, f"ont_rank{rank}")
+        log_path = os.path.join(work, f"ont_rank{rank}.log")
+        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                   METAMDBG_TPU_KEEP_TMP="1", METAMDBG_TPU_DISTRIBUTED="1",
+                   METAMDBG_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   METAMDBG_TPU_NUM_PROCESSES=str(SHARDED_WORLD),
+                   METAMDBG_TPU_PROCESS_ID=str(rank),
+                   METAMDBG_TPU_DIST_BACKEND="gloo")
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _RANK_LAUNCHER, "asm", "--out-dir",
+                 out, "--in-ont", fq, "--device", dev.type, "--threads", "1"],
+                cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        ranks.append((proc, out, log_path, time.perf_counter()))
+    return ranks
+
+
+def sharded_phase(ranks, ont_out, dev):
+    """Phase 11's checks: every rank exited 0, ran every stage as
+    port:cuda in a group of SHARDED_WORLD over gloo, launched every
+    kernel, ran the three sharded stages, and wrote phase 8's files."""
+    port = f"port:{dev.type}"
+    result = {}
+    for rank, (proc, out, log_path, t0) in enumerate(ranks):
+        rc = proc.wait()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"phase 11 rank {rank} exited {rc}:\n"
+                 f"{open(log_path).read()[-4000:]}")
+        prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+        dist_info = prov["distributed"]
+        if (dist_info["rank"], dist_info["world_size"],
+                dist_info["transport"]) != (rank, SHARDED_WORLD, "gloo"):
+            fail(f"phase 11 rank {rank}: group {dist_info}")
+        bad = {n: r for n, r in prov["stages"].items() if r != port}
+        if bad or "readCorrection" not in prov["stages"]:
+            fail(f"phase 11 rank {rank}: stages {prov['stages']}")
+        launches = {name: prov[name]["launches"] for name in (
+            "sketch_kernel", "window_hash_kernel", "chain_kernel",
+            "chain_dp_kernel")}
+        if dev.type == "cuda" and min(launches.values()) < 1:
+            fail(f"phase 11 rank {rank}: a kernel launched no time: "
+                 f"{launches}")
+        sharded = dist_info["sharded"]
+        for stage_name, fn in SHARDED_STAGES.items():
+            if sharded.get(stage_name, {}).get(fn, {}).get("calls", 0) < 1:
+                fail(f"phase 11 rank {rank}: {stage_name} did not run "
+                     f"{fn} sharded: {sharded}")
+        for name in (*CORRECTION_OUTPUTS, *BASESPACE_OUTPUTS,
+                     "kminmerData_abundance_init.txt"):
+            a = open(os.path.join(ont_out, "tmp", name), "rb").read()
+            b = open(os.path.join(out, "tmp", name), "rb").read()
+            if a != b:
+                fail(f"phase 11 rank {rank}: {name} differs from phase 8's")
+        if not _same_contigs(os.path.join(ont_out, "contigs.fasta.gz"),
+                             os.path.join(out, "contigs.fasta.gz")):
+            fail(f"phase 11 rank {rank}: contigs.fasta.gz differs from "
+                 f"phase 8's")
+        walls, rss = _stage_walls(out)
+        for name, dt in walls.items():
+            print(f"sharded rank {rank} stage {name}: {dt:.2f} s")
+        k5 = sharded["k4_createGraph"]["count_table"]
+        k6 = sharded["readCorrection"]["pair_join"]
+        poa = sharded["toBasespace"]["polish"]
+        print(f"sharded rank {rank}: asm wall {wall:.1f} s, peak RSS {rss}; "
+              f"K5 windows {k5['windows']}, received {k5['received']}, "
+              f"shard keys {k5['shard_keys']} of {k5['keys']}; K6 in "
+              f"{k6['calls']} chunk(s): table {k6['table']} and queries "
+              f"{k6['queries']} sent, shard table {k6['shard_table']}, "
+              f"shard queries {k6['shard_queries']}, matches "
+              f"{k6['matches']}; POA windows {poa['windows']} of "
+              f"{poa['batch']} in {poa['calls']} batches; launches "
+              f"{launches}; every compared file identical to phase 8's")
+        result[f"rank{rank}"] = {
+            "asm_wall_s": wall, "peak_rss": rss, "stage_walls_s": walls,
+            "k5": k5, "k6": k6, "poa": poa, "launches": launches}
+    return result
+
+
+class StepTimer:
+    """multihost.steps' timer: CUDA events around each step of a sharded
+    function on the current stream; `ms()` sums them per step name."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        self.events.append((name, a, b))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.events:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def _synthetic_reads(seed):
+    """Phase 11b's K5 input (see K5_SYNTH_*): host u32 minimizer reads."""
+    rng = np.random.default_rng(seed)
+    n_genome = K5_SYNTH_MINIMIZERS // K5_SYNTH_COVERAGE
+    genome = rng.integers(1, 1 << 32, n_genome, dtype=np.uint32)
+    n_reads = K5_SYNTH_MINIMIZERS // K5_SYNTH_MEAN
+    lens = np.clip(rng.gamma(4.0, K5_SYNTH_MEAN / 4.0, n_reads), 4,
+                   4 * K5_SYNTH_MEAN).astype(np.int64)
+    starts = rng.integers(0, n_genome - lens.max(), n_reads)
+    offs = np.repeat(starts - (np.cumsum(lens) - lens), lens)
+    cat = genome[offs + np.arange(int(lens.sum()))]
+    errors = rng.random(cat.shape[0]) < 0.01
+    cat[errors] = rng.integers(1, 1 << 32, int(errors.sum()),
+                               dtype=np.uint32)
+    return np.split(cat, np.cumsum(lens)[:-1])
+
+
+def _single_device_table(reads, k, dev):
+    """The one-device route: every window extracted and counted (K2), keys
+    hashed from the unique rows (KW), in unsigned key order."""
+    from metamdbg_tpu_torch.count import kminmers
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    rows, _, _, _ = kminmers.batch_extract_kminmers(reads, k, dev)
+    uniq, counts = kminmers.count_unique_rows(rows)
+    h1, h2 = kw.hash_rows(uniq)
+    order = kminmers.sort_pairs(h1, h2)
+    return h1[order], h2[order], counts[order]
+
+
+def _k5_bounds(n_min, n_win, n_keys):
+    """Least bytes of each count_table step at one rank (inputs read
+    once, outputs written once), as ms at the memory rate."""
+    b = {"hash": 8 * n_min + 8 * n_win + 16 * n_win,
+         "route": 16 * n_win + 16 * n_win, "split exchange": 16,
+         "row exchange": 32 * n_win, "local sort-count": 16 * n_win
+         + 24 * n_keys, "gather": 48 * n_keys, "merge": 48 * n_keys}
+    return {name: v / HBM_BYTES_PER_S * 1e3 for name, v in b.items()}
+
+
+def _k6_bounds(nt, nq, n_match):
+    b = {"route": 8 * (nt + nq) + 24 * (nt + nq), "split exchange": 16,
+         "row exchange": 48 * (nt + nq),
+         "local join": 24 * (nt + nq) + 8 * nt + 24 * nq,
+         "gather": 2 * (8 * nt + 24 * nq),
+         "expand": 8 * nt + 24 * nq + 8 * nq + 8 * n_match}
+    return {name: v / HBM_BYTES_PER_S * 1e3 for name, v in b.items()}
+
+
+def _timed_call(fn):
+    """(result, per-step device ms, host ms) of fn(timer), after an
+    untimed call that brings the communicator and caches up."""
+    fn(None)
+    torch.cuda.synchronize()
+    timer = StepTimer()
+    t0 = time.perf_counter()
+    res = fn(timer)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return res, timer.ms(), host
+
+
+def nccl_phase(dev, ont_out, join_inputs):
+    """Phase 11b: count_table (K5) and pair_join (K6) on a one-rank NCCL
+    group in this process, on the card, each at two sizes, held against
+    the single-device route (tolerance 0) and timed step by step."""
+    from metamdbg_tpu_torch import parallel
+    from metamdbg_tpu_torch.correction import mapper
+    from metamdbg_tpu_torch.graph import stage
+    from metamdbg_tpu_torch.parallel import count_table, pair_join
+
+    names = ("METAMDBG_TPU_DISTRIBUTED", "METAMDBG_TPU_COORDINATOR",
+             "METAMDBG_TPU_NUM_PROCESSES", "METAMDBG_TPU_PROCESS_ID",
+             "METAMDBG_TPU_DIST_BACKEND")
+    saved = {n: os.environ.pop(n, None) for n in names}
+    os.environ.update(METAMDBG_TPU_DISTRIBUTED="1",
+                      METAMDBG_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                      METAMDBG_TPU_NUM_PROCESSES="1",
+                      METAMDBG_TPU_PROCESS_ID="0")
+    try:
+        rank_dev = parallel.ensure_distributed(dev)
+    finally:
+        for n, v in saved.items():
+            os.environ.pop(n, None)
+            if v is not None:
+                os.environ[n] = v
+    result = {}
+    try:
+        import torch.distributed as dist
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"phase 11b: group {parallel.describe()}")
+        group = dist.group.WORLD
+        k5_inputs = {
+            "ont_first_pass_k4": stage.load_minimizer_reads(
+                os.path.join(ont_out, "tmp", "read_data_corrected.txt")),
+            "synthetic_50M": _synthetic_reads(11)}
+        for name in list(k5_inputs):
+            reads = k5_inputs.pop(name)  # freed before the next input
+            (h1, h2, counts), steps, host = _timed_call(
+                lambda timer: count_table.count_table(reads, FIRST_K,
+                                                      rank_dev, group, timer))
+            w1, w2, wc = _single_device_table(reads, FIRST_K, rank_dev)
+            if not (torch.equal(h1, w1) and torch.equal(h2, w2)
+                    and torch.equal(counts, wc)):
+                fail(f"phase 11b: K5 on {name} differs from the single-"
+                     f"device table")
+            n_min = sum(r.shape[0] for r in reads)
+            n_win = int(counts.sum())
+            bounds = _k5_bounds(n_min, n_win, h1.shape[0])
+            result[f"k5_{name}"] = {
+                "reads": len(reads), "minimizers": n_min, "windows": n_win,
+                "keys": h1.shape[0], "max_abs_err": 0, "steps_ms": steps,
+                "bound_ms": bounds, "host_ms": host}
+            print(f"nccl K5 {name}: {len(reads)} reads, {n_min} minimizers, "
+                  f"{n_win} windows, {h1.shape[0]} keys, identical to the "
+                  f"single-device table; steps (ms) "
+                  + ", ".join(f"{k} {v:.3f} (bound {bounds[k]:.3f})"
+                              for k, v in steps.items())
+                  + f"; host {host:.1f} ms")
+        synth = torch.arange(K6_SYNTH_PAIRS, device=rank_dev)
+        gen = torch.Generator(device=rank_dev).manual_seed(12)
+        k6_inputs = {
+            "ont_first_chunk": join_inputs,
+            "synthetic_2^25": tuple(
+                torch.randint(0, K6_SYNTH_PAIRS, synth.shape, device=rank_dev,
+                              generator=gen) * -7046029254386353131
+                for _ in range(2))}
+        for name, (tbl, queries) in k6_inputs.items():
+            tbl, queries = tbl.to(rank_dev), queries.to(rank_dev)
+            (counts, matches), steps, host = _timed_call(
+                lambda timer: pair_join.pair_join(tbl, queries, group, timer))
+            want_counts, want = mapper._join(
+                {"key": tbl ^ mapper._SIGN}, {"key": queries ^ mapper._SIGN},
+                0, tbl.shape[0], None)
+            if not (torch.equal(counts, want_counts)
+                    and torch.equal(matches, want)):
+                fail(f"phase 11b: K6 on {name} differs from the sorted join")
+            bounds = _k6_bounds(tbl.shape[0], queries.shape[0],
+                                matches.shape[0])
+            result[f"k6_{name}"] = {
+                "table": tbl.shape[0], "queries": queries.shape[0],
+                "matches": matches.shape[0], "max_abs_err": 0,
+                "steps_ms": steps, "bound_ms": bounds, "host_ms": host}
+            print(f"nccl K6 {name}: table {tbl.shape[0]}, queries "
+                  f"{queries.shape[0]}, matches {matches.shape[0]}, identical "
+                  f"to the sorted join; steps (ms) "
+                  + ", ".join(f"{k} {v:.3f} (bound {bounds[k]:.3f})"
+                              for k, v in steps.items())
+                  + f"; host {host:.1f} ms")
+    finally:
+        parallel.shutdown()
+    return result
+
+
 def _kernel_line(name, source, replaces, launches, result, main_path,
                  **extra):
     """One kernel's entry of the kernels line. `result`: max_abs_err,
@@ -1779,12 +2128,17 @@ def main():
         corr_ref, corr_job = correction_reference_start(work, ont_fq)
         jobs.append(corr_job)
         hifi_gfa = gfa_map_phase("hifi", dev, out, hifi_k, hifi_refs)
-        ont_out, k4_launches, k4_main = ont_phase(work, dev, ont_fq)
+        ont_out, k4_launches, k4_main, join_inputs = ont_phase(work, dev,
+                                                               ont_fq)
+        ranks = sharded_start(work, ont_fq, dev)
+        jobs += [r[:1] for r in ranks]
         ont_k, ont_refs = saved_ks(ont_out)[0], write_references(work, "ont")
         ont_gfa_ref, ont_gfa_job = gfa_reference_start(
             work, "ont", ont_out, ont_k, ont_refs)
         jobs.append(ont_gfa_job)
         ont_gfa = gfa_map_phase("ont", dev, ont_out, ont_k, ont_refs)
+        nccl = nccl_phase(dev, ont_out, join_inputs)
+        del join_inputs
         reference_phase(rs_ref, rs_job, out)
         graph_reference_phase(graph_job, digests)
         basespace_reference_phase(bs_ref, bs_job, out)
@@ -1793,6 +2147,7 @@ def main():
                             hifi_gfa)
         gfa_reference_phase("ont", ont_gfa_ref, ont_gfa_job, ont_out, ont_k,
                             ont_gfa)
+        two_ranks = sharded_phase(ranks, ont_out, dev)
     finally:
         for proc, *_ in jobs:
             if proc.poll() is None:
@@ -1811,6 +2166,8 @@ def main():
                 for tag, r in (("hifi", hifi_gfa), ("ont", ont_gfa))}
         return {**runs, "max_abs_err": max(hifi_gfa[3], ont_gfa[3])}
 
+    print(json.dumps({"sharded": {"two_ranks_gloo_one_card": two_ranks,
+                                  "one_rank_nccl": nccl}}))
     print(json.dumps({"kernels": [
         _kernel_line("sketch_tiles", "metamdbg_tpu_torch/csrc/sketch.cu",
                      "metamdbg_tpu/kernels/sketch_pallas.py:49",

@@ -6,6 +6,10 @@ The `asm`, `gfa` and `map` subcommands of metamdbg_tpu with the same
 arguments, plus ``--device {cuda,cpu}`` (default cuda) on each. `cuda`
 needs a usable NVIDIA GPU and raises at startup without one; `cpu` runs
 the kernels' plain torch versions. `asm` and `gfa` take ``--threads``.
+
+`asm` runs as N ranks when METAMDBG_TPU_DISTRIBUTED is set (the variables
+of metamdbg_tpu_torch/parallel/__init__.py; an --out-dir per rank): every
+rank writes the one-rank run's files, and the group is torn down at exit.
 """
 
 import argparse
@@ -93,22 +97,28 @@ def main(argv=None):
     if missing:
         parser.error("read file not found: " + ", ".join(missing))
 
+    from metamdbg_tpu_torch import parallel
     from metamdbg_tpu_torch.pipeline.asm import Pipeline
-    Pipeline(args.out_dir, reads,
-             platform="hifi" if args.in_hifi else "ont",
-             device=args.device,
-             min_read_quality=args.min_read_quality, max_k=args.max_k,
-             min_abundance=args.min_abundance,
-             max_bubble_length=args.max_bubble_length,
-             max_tip_length=args.max_tip_length,
-             minimizer_size=args.minimizer_size,
-             density_assembly=args.density_assembly,
-             density_correction=args.density_correction,
-             min_contig_length=args.min_contig_length,
-             min_contig_coverage=args.min_contig_coverage,
-             skip_correction=args.skip_correction,
-             all_assembly_graph=args.all_assembly_graph,
-             n_threads=args.threads).run()
+    pipeline = Pipeline(args.out_dir, reads,
+                        platform="hifi" if args.in_hifi else "ont",
+                        device=args.device,
+                        min_read_quality=args.min_read_quality,
+                        max_k=args.max_k,
+                        min_abundance=args.min_abundance,
+                        max_bubble_length=args.max_bubble_length,
+                        max_tip_length=args.max_tip_length,
+                        minimizer_size=args.minimizer_size,
+                        density_assembly=args.density_assembly,
+                        density_correction=args.density_correction,
+                        min_contig_length=args.min_contig_length,
+                        min_contig_coverage=args.min_contig_coverage,
+                        skip_correction=args.skip_correction,
+                        all_assembly_graph=args.all_assembly_graph,
+                        n_threads=args.threads)
+    try:
+        pipeline.run()
+    finally:
+        parallel.shutdown()
     return 0
 
 

@@ -26,7 +26,8 @@ import time
 
 import numpy as np
 
-from . import overlap, overlap_native, poa_native, window_cut_native
+from ..parallel.polish_mesh import polish_windows_distributed
+from . import overlap, overlap_native, window_cut_native
 
 log = logging.getLogger("metamdbg_tpu_torch")
 
@@ -291,7 +292,7 @@ def trim_consensus(seq: bytes, coverages: np.ndarray, nb_sequences: int,
 def polish_pass(contigs: dict, headers: dict, reads: list,
                 min_contig_length: int, min_contig_coverage: float,
                 final_headers: bool, device, n_threads: int = 1,
-                read_sketches=None, restrict=None):
+                read_sketches=None, restrict=None, group=None):
     """One polishPartition pass (hpp:281-448). contigs: cid -> uint8 seq;
     headers: cid -> (orig_index, is_circular); reads: [(idx, seq, qual)].
     Returns (new contigs dict, new headers dict, coverages, header strings,
@@ -302,6 +303,8 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
     outside every interval short-circuit to their backbone (the targeted
     refinement pass re-polishes only regions the previous pass was still
     changing); contigs with no active window pass through unfiltered.
+    With `group` (two or more ranks), the window POAs fan out over the
+    ranks (parallel/polish_mesh.py).
     """
     _t0 = time.perf_counter()
     all_alignments = map_reads_to_contigs(contigs, reads, device,
@@ -410,7 +413,8 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
 
     if batch:
         for (cid, wid, nseq, is_last), (cons, covs) in zip(
-                keys, poa_native.polish_windows(batch, n_threads=n_threads)):
+                keys, polish_windows_distributed(batch, n_threads=n_threads,
+                                                 group=group)):
             results[(cid, wid)] = trim_consensus(cons, covs, nseq, is_last)
     _t_poa = time.perf_counter()
 

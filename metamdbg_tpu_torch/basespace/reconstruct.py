@@ -65,7 +65,10 @@ def reconstruct_unpolished(minimizers, is_circular, alignments, read_seqs,
 def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
                      params: records.Parameters, device,
                      min_contig_length: int = 50,
-                     min_contig_coverage: float = 1.0, n_threads: int = 1):
+                     min_contig_coverage: float = 1.0, n_threads: int = 1,
+                     group=None):
+    """With `group` (two or more ranks), the polish passes' window POAs
+    fan out over the ranks (parallel/polish_mesh.py)."""
     contig_file = os.path.join(out_dir, "contig_data_init_small.txt.norepeats")
     aln_file = os.path.join(out_dir, "readsVsContigsAlignments.bin")
     partition_dir = os.path.join(out_dir, "_polish_readPartitions")
@@ -174,7 +177,8 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
             c1, h1, cov1, _, changed = polisher_mod.polish_pass(
                 c1, h1, partition_reads, min_contig_length,
                 min_contig_coverage, final_headers=(p == POLISH_PASSES - 1),
-                device=device, n_threads=n_threads, read_sketches=sketches)
+                device=device, n_threads=n_threads, read_sketches=sketches,
+                group=group)
         if changed:
             margin = polisher_mod.WINDOW_LEN
             if params.data_type == 1:
@@ -197,7 +201,7 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
                 c1, h1, partition_reads, min_contig_length,
                 min_contig_coverage, final_headers=True, device=device,
                 n_threads=n_threads, read_sketches=sketches,
-                restrict=restrict)
+                restrict=restrict, group=group)
             cov1.update(cov_r)
         for cid in c1:
             polished_contigs[cid] = c1[cid]

@@ -25,7 +25,8 @@ is u64 order), the anchors in the JAX package's order (gather order, then
 stable sorts by (query read, target read, ref, query)), one launch of
 kernel K4 (kernels/chain_dp.py) over all of the chunk's groups, and the
 per-position selection as stable sorts. Groups of fewer than 3 anchors are
-not chained (ReadMapper.hpp:850).
+not chained (ReadMapper.hpp:850). Over a group of ranks the join runs
+sharded (parallel/pair_join.py, K6): the same ranges, in the same order.
 """
 
 import struct
@@ -101,11 +102,13 @@ def _select(read, tgt, score, counts, positions, used_coverage: int):
 def run_read_mapper(reads, nb_minimizers_per_chunk: int,
                     max_chaining_band: int, device,
                     used_coverage: int = USED_COVERAGE_FOR_CORRECTION,
-                    alignment_path: str | None = None):
+                    alignment_path: str | None = None, group=None):
     """reads: list of io.records.MinimizerRead (read_data_init.txt order).
 
     Returns dict read_index -> np.ndarray of aligned read indexes (sorted,
     u32), and writes readAlignmentsLowDensity.bin to `alignment_path`.
+    With `group` (two or more ranks, each holding the same reads), every
+    chunk's join runs through the sharded pair join (K6).
     """
     device = torch.device(device)
     pair_data = [read_pairs(r) for r in reads]
@@ -151,7 +154,7 @@ def run_read_mapper(reads, nb_minimizers_per_chunk: int,
 
     kept = [_process_chunk(pairs, query, int(pair_offs[lo]),
                            int(pair_offs[hi]), max_chaining_band,
-                           used_coverage) for lo, hi in chunks]
+                           used_coverage, group) for lo, hi in chunks]
     kept = [e for e in kept if e is not None]
 
     result: dict[int, np.ndarray] = {}
@@ -182,29 +185,44 @@ def run_read_mapper(reads, nb_minimizers_per_chunk: int,
     return result
 
 
-def _process_chunk(pairs, query, t_lo: int, t_hi: int, band: int,
-                   used_coverage: int):
-    """One chunk: the table of pairs [t_lo, t_hi) against every query
-    pair. Returns the entries its selection keeps, (read, target,
-    position count, positions), or None."""
+def _join(pairs, query, t_lo: int, t_hi: int, group):
+    """Each query pair's matches among the table pairs [t_lo, t_hi):
+    (match count per query pair, matched pair indices in gather order:
+    query pair asc, then table index asc)."""
     dev = pairs["key"].device
-    if t_hi == t_lo or query["key"].numel() == 0:
-        return None
+    if group is not None:
+        from ..parallel.pair_join import pair_join
+        counts, matches = pair_join(pairs["key"][t_lo:t_hi] ^ _SIGN,
+                                    query["key"] ^ _SIGN, group)
+        return counts, matches + t_lo
     order = torch.sort(pairs["key"][t_lo:t_hi], stable=True).indices + t_lo
     tbl_key = pairs["key"][order]
     lo = torch.searchsorted(tbl_key, query["key"], right=False)
     hi = torch.searchsorted(tbl_key, query["key"], right=True)
     counts = hi - lo
     total = int(counts.sum())
-    if total == 0:
+    first = torch.cumsum(counts, 0) - counts
+    return counts, order[(lo - first).repeat_interleave(counts,
+                                                        output_size=total)
+                         + torch.arange(total, device=dev)]
+
+
+def _process_chunk(pairs, query, t_lo: int, t_hi: int, band: int,
+                   used_coverage: int, group=None):
+    """One chunk: the table of pairs [t_lo, t_hi) against every query
+    pair. Returns the entries its selection keeps, (read, target,
+    position count, positions), or None."""
+    dev = pairs["key"].device
+    if t_hi == t_lo or query["key"].numel() == 0:
+        return None
+    counts, j = _join(pairs, query, t_lo, t_hi, group)
+    if j.numel() == 0:
         return None
     # expand ranges into anchors, in gather order: query read asc, query
     # pair asc, table order asc, as the JAX package's per-read loop
     q_sel = torch.repeat_interleave(
-        torch.arange(counts.shape[0], device=dev), counts)
-    first = torch.cumsum(counts, 0) - counts
-    j = order[(lo - first).repeat_interleave(counts)
-              + torch.arange(total, device=dev)]
+        torch.arange(counts.shape[0], device=dev), counts,
+        output_size=j.shape[0])
     q_read, t_read = query["read"][q_sel], pairs["read"][j]
     keep = t_read != q_read
     q_sel, j, q_read, t_read = q_sel[keep], j[keep], q_read[keep], \

@@ -118,8 +118,10 @@ def sketch_high_density_reads(input_paths, params: records.Parameters,
 
 def run_read_correction(tmp_dir: str, params: records.Parameters, device,
                         min_identity: float = 0.96,
-                        min_overlap_length: int = 1000, n_threads: int = 1):
-    """The whole stage in `tmp_dir`; returns the correction checksum."""
+                        min_overlap_length: int = 1000, n_threads: int = 1,
+                        group=None):
+    """The whole stage in `tmp_dir`; returns the correction checksum.
+    With `group` (two or more ranks), the mapper's joins run sharded."""
     t0 = time.perf_counter()
     stats = records.ReadStats.load(os.path.join(tmp_dir, "read_stats.txt"))
     reads = list(records.read_read_data(
@@ -144,7 +146,8 @@ def run_read_correction(tmp_dir: str, params: records.Parameters, device,
 
     alignments = mapper.run_read_mapper(
         reads, chunk_size, band, device,
-        alignment_path=os.path.join(tmp_dir, "readAlignmentsLowDensity.bin"))
+        alignment_path=os.path.join(tmp_dir, "readAlignmentsLowDensity.bin"),
+        group=group)
 
     t_map = time.perf_counter()
 

@@ -11,8 +11,9 @@ The port of metamdbg_tpu/count/kminmers.py (method semantics there):
 Rows are (N, k) int64 tensors of u32 values. 128-bit hash keys are pairs of
 int64 tensors (h1, h2) holding the u64 bits; every sort and search on them
 flips the sign bit first, so that their order is the unsigned order the
-JAX package's uint64 arrays have. Not ported: the mesh variant
-(`count_kminmers_mesh`, ROADMAP Queue 1 item 10).
+JAX package's uint64 arrays have. `count_kminmers_sharded`, the port of
+`count_kminmers_mesh`, counts over a group of ranks through the sharded
+count table (parallel/count_table.py, K5).
 """
 
 import logging
@@ -116,6 +117,34 @@ def count_kminmers(reads: list, k: int, device, min_abundance: int = 0,
                                        max_table_bytes)
     rows, read_ids, _, offsets = batch_extract_kminmers(reads, k, device)
     uniq, counts = count_unique_rows(rows)
+    return _assemble_first_pass(rows, read_ids, offsets, uniq, counts, k,
+                                min_abundance)
+
+
+def count_kminmers_sharded(group, reads: list, k: int, device,
+                           min_abundance: int = 0):
+    """count_kminmers with the abundance table sharded over `group` (two
+    or more ranks, each holding the same `reads`).
+
+    The count (hash every window, route each key to its owner, sort and
+    count per rank) runs in parallel/count_table.py (K5), the twin of the
+    reference's hash-sharded disk partitions
+    (src/graph/CreateMdbg.hpp:3714-3883). Each rank keeps the unique rows
+    (kminmerData_min.txt needs them) and the rescue, and joins the table's
+    counts back by 128-bit hash: the result of count_kminmers."""
+    from ..parallel.count_table import count_table
+    rows, read_ids, _, offsets = batch_extract_kminmers(reads, k, device)
+    if rows.shape[0] == 0:  # the same on every rank: no collective waits
+        return count_kminmers(reads, k, device, min_abundance)
+    h1, h2, key_counts = count_table(reads, k, device, group)
+    uniq, _ = count_unique_rows(rows)
+    q1, q2 = window_hash.hash_rows(uniq)
+    counts, hit = PairTable(h1, h2, key_counts, presorted=True).lookup(
+        q1, q2, 0)
+    if not bool(hit.all()):
+        raise RuntimeError(
+            f"the sharded count table lacks {int((~hit).sum())} of "
+            f"{uniq.shape[0]} k-min-mers counted on this rank")
     return _assemble_first_pass(rows, read_ids, offsets, uniq, counts, k,
                                 min_abundance)
 

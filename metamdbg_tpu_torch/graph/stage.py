@@ -2,10 +2,9 @@
 k-min-mers -> compacted unitig graph, mirroring `metaMDBG graph`
 (src/graph/CreateMdbg.cpp:168-598).
 
-The port of metamdbg_tpu/graph/stage.py without the mesh argument (the
-sharded first pass is ROADMAP Queue 1 item 10). Counting, hashing and
-lookups run on `device`; the artifacts are the JAX package's, byte for
-byte.
+The port of metamdbg_tpu/graph/stage.py; its mesh argument is a group of
+ranks here (`group`, parallel/__init__.py). Counting, hashing and lookups
+run on `device`; the artifacts are the JAX package's, byte for byte.
 """
 
 import os
@@ -14,7 +13,7 @@ import struct
 
 from ..count import refined as refined_mod
 from ..count.kminmers import batch_extract_kminmers, count_kminmers, \
-    count_unique_rows
+    count_kminmers_sharded, count_unique_rows
 from ..io import records
 from . import gio, mdbg
 
@@ -84,12 +83,20 @@ def run_graph_second_pass(out_dir: str, k: int, params: records.Parameters,
 
 
 def run_graph_first_pass(out_dir: str, k: int, min_abundance: int, device,
-                         reads=None):
-    """Returns the UnitigGraph; writes all stage artifacts into out_dir."""
+                         reads=None, group=None):
+    """Returns the UnitigGraph; writes all stage artifacts into out_dir.
+
+    With `group` (two or more ranks, parallel.production_group()), the
+    count runs through the sharded count table (K5); the artifacts are the
+    one-rank path's, byte for byte."""
     if reads is None:
         reads = load_minimizer_reads(os.path.join(out_dir,
                                                   "read_data_corrected.txt"))
-    counts = count_kminmers(reads, k, device, min_abundance)
+    if group is not None:
+        counts = count_kminmers_sharded(group, reads, k, device,
+                                        min_abundance)
+    else:
+        counts = count_kminmers(reads, k, device, min_abundance)
     _write_kminmers(out_dir, counts["all_rows"], counts["all_counts"],
                     "kminmerData_abundance_init.txt")
     graph = mdbg.build_unitig_graph(counts["all_rows"], k)

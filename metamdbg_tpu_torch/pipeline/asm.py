@@ -17,7 +17,15 @@ rewritten after every stage: the device, the route of each stage
 ("port:<device>"), and for each kernel (sketch, window hash, chain, chain
 DP) its launches in all and per stage (a stage that launched a kernel no
 time has no entry for it); the sketch kernel's also counts its overflow
-relaunches and the tile batches.
+relaunches and the tile batches; and the group of ranks: rank, world size,
+transport, and for each stage that ran sharded what each sharded function
+did there (parallel/__init__.py's counters).
+
+Run as N ranks (METAMDBG_TPU_DISTRIBUTED and the variables of
+parallel/__init__.py, an --out-dir per rank), `run` starts the group
+first; readCorrection's pair joins (K6), the first pass's count (K5) and
+toBasespace's window POAs then run sharded, and every rank writes the
+one-rank run's files.
 """
 
 import contextlib
@@ -32,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..basespace import postprocess, reconstruct
 from ..constants import compute_last_k
 from ..correction import stage as correction
@@ -109,6 +118,8 @@ class Pipeline:
         self.sketch_launches: dict = {}
         self.chain_launches: dict = {}
         self.chain_dp_launches: dict = {}
+        self.sharded: dict = {}
+        self.group = None
         self.reads_cache = multiplex.ReadsCache()
 
         for d in ("", "filter", "checkpoints", "smallContigs"):
@@ -128,11 +139,17 @@ class Pipeline:
                    (self.chain_launches, kchain),
                    (self.chain_dp_launches, kchain_dp))
         before = [k.launches for _, k in kernels]
+        before_sharded = {n: dict(c) for n, c in parallel.activity.items()}
         yield
         dt = time.time() - t0
         for (counts, k), n0 in zip(kernels, before):
             if k.launches > n0:
                 counts[name] = k.launches - n0
+        for fn, after in parallel.activity.items():
+            prev = before_sharded.get(fn, {})
+            if after["calls"] > prev.get("calls", 0):
+                self.sharded.setdefault(name, {})[fn] = {
+                    key: v - prev.get(key, 0) for key, v in after.items()}
         rss = peak_rss_gb()
         with open(os.path.join(self.tmp_dir, "memoryTrack.txt"), "a") as f:
             f.write(f"{name}\t{dt:.2f}s\t{rss:.3f}GB\n")
@@ -162,7 +179,9 @@ class Pipeline:
                    "by_stage": self.chain_launches},
                "chain_dp_kernel": {
                    "launches": kchain_dp.launches,
-                   "by_stage": self.chain_dp_launches}}
+                   "by_stage": self.chain_dp_launches},
+               "distributed": {**parallel.describe(),
+                               "sharded": self.sharded}}
         with open(os.path.join(self.tmp_dir, "device.json"), "w") as f:
             json.dump(doc, f, indent=1)
 
@@ -197,6 +216,10 @@ class Pipeline:
     # -- stages -------------------------------------------------------------
     def run(self):
         t0 = time.time()
+        # ranks find each other before anything else (as the JAX package's
+        # devwarm.start_warmup -> parallel.ensure_distributed)
+        self.device = parallel.ensure_distributed(self.device)
+        self.group = parallel.production_group()
         self.mean_read_length = 0
         params = self.make_params(self.first_k, self.first_k)
         params.save(os.path.join(self.tmp_dir, "parameters.gz"))
@@ -227,7 +250,8 @@ class Pipeline:
                     correction.run_read_correction(
                         self.tmp_dir, params, self.device,
                         self.read_correction_min_identity,
-                        self.read_correction_min_overlap, self.n_threads)
+                        self.read_correction_min_overlap, self.n_threads,
+                        group=self.group)
                 self._mark("correctReads")
 
         prev_k = self.first_k
@@ -245,7 +269,8 @@ class Pipeline:
                     if pass_index == 0:
                         stage.run_graph_first_pass(self.tmp_dir, k,
                                                    self.min_abundance,
-                                                   self.device)
+                                                   self.device,
+                                                   group=self.group)
                     elif k == self.first_k + 1:
                         stage.run_graph_second_pass(self.tmp_dir, k, params,
                                                     self.device)
@@ -384,7 +409,8 @@ class Pipeline:
                     self.tmp_dir, self.read_paths,
                     os.path.join(self.out_dir, "contigs.fasta.gz"), params,
                     self.device, self.min_contig_length,
-                    self.min_contig_coverage, self.n_threads)
+                    self.min_contig_coverage, self.n_threads,
+                    group=self.group)
             self._mark("toBasespace")
 
     def _log_final_summary(self, run_seconds: float):

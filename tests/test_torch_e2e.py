@@ -12,6 +12,7 @@ import gzip
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -41,6 +42,10 @@ from metamdbg_tpu_torch.__main__ import main
 sys.exit(main(sys.argv[1:]))
 """
 JAX_AND_PACKAGE = ("jax", "jaxlib", "metamdbg_tpu")
+# the ONT asm's read selection and correction artifacts
+ONT_ARTIFACTS = ("read_data_init.txt", "read_stats.txt",
+                 "repetitiveMinimizers.bin", "readAlignmentsLowDensity.bin",
+                 "read_data_corrected.txt")
 
 
 def run_port(args, timeout=300, blocked=JAX_AND_PACKAGE, env=None):
@@ -49,6 +54,36 @@ def run_port(args, timeout=300, blocked=JAX_AND_PACKAGE, env=None):
                            ",".join(blocked), *args],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)
+
+
+def run_port_ranks(args_of_rank, world, timeout=300, env=None):
+    """`run_port` as `world` ranks of one group over gloo on localhost,
+    all started together; rank r runs args_of_rank(r). Each rank gets one
+    torch thread, as torchrun gives each of several ranks on a host.
+    Returns the finished processes' (returncode, stderr)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        renv = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                    METAMDBG_TPU_DISTRIBUTED="1",
+                    METAMDBG_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                    METAMDBG_TPU_NUM_PROCESSES=str(world),
+                    METAMDBG_TPU_PROCESS_ID=str(rank), **(env or {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _BLOCKED_LAUNCHER,
+             ",".join(JAX_AND_PACKAGE), *args_of_rank(rank)], cwd=REPO,
+            env=renv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True))
+    try:
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, err) for p, err in zip(procs, errs)]
 
 
 def read_device_json(out):
@@ -154,15 +189,50 @@ def test_port_ont_asm_matches_jax_package(jax_ont_run, tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
                         os.path.join(out, "contigs.fasta.gz"))
-    for name in ("read_data_init.txt", "read_stats.txt",
-                 "repetitiveMinimizers.bin", "readAlignmentsLowDensity.bin",
-                 "read_data_corrected.txt"):
+    for name in ONT_ARTIFACTS:
         a = open(os.path.join(jout, "tmp", name), "rb").read()
         assert len(a) > 0 and a == \
             open(os.path.join(out, "tmp", name), "rb").read(), name
-    stages = read_device_json(out)["stages"]
-    assert stages["readCorrection"] == "port:cpu"
-    assert set(stages.values()) == {"port:cpu"}
+    prov = read_device_json(out)
+    assert prov["stages"]["readCorrection"] == "port:cpu"
+    assert set(prov["stages"].values()) == {"port:cpu"}
+    # one rank: no group, nothing sharded
+    assert prov["distributed"] == {"rank": 0, "world_size": 1,
+                                   "transport": None, "sharded": {}}
+
+
+def test_two_rank_ont_asm_matches_jax_package(jax_ont_run, tmp_path):
+    """(a'') The slice as a whole: the port's ONT asm as two ranks over
+    gloo, each with its own out dir, jax and the JAX package refused and
+    `os.fork` raising. Every rank ran the pair joins, the first pass's
+    count and the window POAs sharded, and wrote the JAX package's
+    artifacts and contigs."""
+    fq, jout = jax_ont_run
+    outs = [str(tmp_path / f"rank{r}") for r in range(2)]
+    done = run_port_ranks(
+        lambda r: ["asm", "--out-dir", outs[r], "--in-ont", fq, "--device",
+                   "cpu", "--threads", "1"], 2,
+        env={"METAMDBG_TPU_KEEP_TMP": "1"})
+    for rc, err in done:
+        assert rc == 0, err[-4000:]
+    for rank, out in enumerate(outs):
+        assert_same_contigs(os.path.join(jout, "contigs.fasta.gz"),
+                            os.path.join(out, "contigs.fasta.gz"))
+        for name in ONT_ARTIFACTS:
+            a = open(os.path.join(jout, "tmp", name), "rb").read()
+            assert len(a) > 0 and a == \
+                open(os.path.join(out, "tmp", name), "rb").read(), name
+        prov = read_device_json(out)
+        assert set(prov["stages"].values()) == {"port:cpu"}
+        dist = prov["distributed"]
+        assert (dist["rank"], dist["world_size"], dist["transport"]) == \
+            (rank, 2, "gloo")
+        sharded = dist["sharded"]
+        assert set(sharded) == {"readCorrection", "k4_createGraph",
+                                "toBasespace"}
+        assert sharded["readCorrection"]["pair_join"]["calls"] >= 1
+        assert sharded["k4_createGraph"]["count_table"]["calls"] == 1
+        assert sharded["toBasespace"]["polish"]["calls"] >= 2
 
 
 def test_port_resumes_jax_package_run(jax_run, tmp_path):
@@ -281,7 +351,9 @@ def test_port_modules_import_no_jax_package():
         metamdbg_tpu_torch.__path__, "metamdbg_tpu_torch."))
     assert "metamdbg_tpu_torch.kernels.chain_dp" in names
     assert "metamdbg_tpu_torch.correction.stage" in names
-    for name in ("pipeline.gfa", "pipeline.mapref", "io.gfa"):
+    for name in ("pipeline.gfa", "pipeline.mapref", "io.gfa",
+                 "parallel", "parallel.multihost", "parallel.count_table",
+                 "parallel.pair_join", "parallel.polish_mesh"):
         assert "metamdbg_tpu_torch." + name in names
     assert "metamdbg_tpu_torch.bridge" not in names
     script = (
