@@ -133,7 +133,7 @@ subprocess, all four at once:
    port's (host numpy against the port on the card, one thread each).
 11. two ranks on the one card (started when phase 8 ends, beside 8b, 11b
    and the references): phase 8's ONT reads, not cut, through `asm
-   --in-ont --device cuda --threads 1` in two subprocesses, each with the
+   --in-ont --device cuda --threads 4` in two subprocesses, each with the
    JAX package refused and `os.fork` raising, as ranks 0 and 1 of a
    torch.distributed group over gloo (METAMDBG_TPU_DISTRIBUTED, a
    localhost coordinator, METAMDBG_TPU_DIST_BACKEND=gloo: NCCL puts no two
@@ -145,7 +145,8 @@ subprocess, all four at once:
    toBasespace's artifacts, the first pass's kminmerData_abundance_init.txt
    and contigs.fasta.gz (outside bytes 4-7) must be byte-identical on both
    ranks to phase 8's. Prints per rank the stage walls, asm wall, peak
-   RSS, K5's and K6's shard sizes and the POA windows it polished;
+   RSS (its own process's), K5's and K6's shard sizes, the POA windows it
+   polished and its correction and polish timing lines;
 11b. NCCL on a one-rank group in this process: the sharded count table
    (K5) on phase 8's first-pass reads at k = 4 and on ~50.7M synthetic
    minimizers (the k = 4 table of a 10.14 Gbp HiFi run) in ~845k reads,
@@ -157,8 +158,21 @@ subprocess, all four at once:
    second call (hash, route, split exchange, row exchange, local
    sort-count or join, gather, merge or expand) beside its bound, the
    bytes it must move at the memory rate. The group is torn down after.
+4t. `--threads 8` (started when every other phase and reference has
+   ended, so that its walls have the host's cores): phase 4's reads
+   through `python -m metamdbg_tpu_torch asm --in-hifi ... --device cuda
+   --threads 8` in a subprocess, the JAX package refused and `os.fork`
+   raising: the native engines' batches split over 8 Python threads
+   (utils/threadmap.py). Every pass's graph artifact digests, read
+   selection's three files, post-processing's and toBasespace's files and
+   contigs.fasta.gz (outside bytes 4-7) must be byte-identical to phase
+   4's. Prints os.cpu_count() and os.getloadavg() at its start, its stage
+   walls beside phase 4's, both runs' tiling and polish pass timing lines
+   (map, cut, index, packing and POA walls), its asm wall and its own
+   peak RSS.
 
-The line before the last three is a JSON object with phases 11 and 11b's
+The line before the last four is a JSON object with phase 4t's results
+("threads"); the line before the last three one with phases 11 and 11b's
 results ("sharded"). The line before the last two is a JSON object
 describing each kernel: its
 launches in phase 4 (K4's in phase 8), its largest difference from the
@@ -1056,6 +1070,28 @@ def _stage_walls(out):
     return walls, rss
 
 
+def _rss_rises(out):
+    """[(stage, peak RSS after it)] for each stage that raised the peak."""
+    rises, last = [], ""
+    for line in open(os.path.join(out, "tmp", "memoryTrack.txt")):
+        name, _, rss = line.split()
+        if rss != last:
+            rises.append((name, rss))
+            last = rss
+    return rises
+
+
+TIMING_LINES = ("polish pass timing", " tiling: ", "correction timing")
+
+
+def _timing_lines(out):
+    """The stage timing lines of the asm's metaMDBG.log: each partition's
+    tiling, each polish pass's and the correction's."""
+    return [line.split(" INFO ", 1)[-1].strip()
+            for line in open(os.path.join(out, "metaMDBG.log"))
+            if any(key in line for key in TIMING_LINES)]
+
+
 def _contigs(out):
     headers, lengths = [], []
     with gzip.open(os.path.join(out, "contigs.fasta.gz"), "rt") as f:
@@ -1307,10 +1343,11 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     walls, rss = _stage_walls(out)
     for name, dt in walls.items():
         print(f"e2e stage {name}: {dt:.2f} s")
-    print(f"e2e peak RSS {rss}")
-    for line in open(os.path.join(out, "metaMDBG.log")):
-        if "polish pass timing" in line or " tiling: " in line:
-            print(f"e2e log: {line.split(' INFO ', 1)[-1].strip()}")
+    print(f"e2e peak RSS {rss} (chip_smoke.py's process, phases 1-4)")
+    # read now: the later runs of this process log into the same file
+    timing = _timing_lines(out)
+    for line in timing:
+        print(f"e2e log: {line}")
     print(f"e2e: asm wall {wall:.1f} s; sketch kernel launches {launches} "
           f"({relaunches} overflow relaunches) over {tile_batches} tile "
           f"batches")
@@ -1384,8 +1421,101 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     if len(lengths) != 1 or "circular=yes" not in headers[0] or \
             abs(lengths[0] - genome_len) > 2000:
         fail(f"expected one circular contig within 2 kb of {genome_len}")
-    return out, (launches, kw_launches, k3_launches), wall, params_dir, \
-        digests, main_path
+    return out, (launches, kw_launches, k3_launches), (wall, timing), \
+        params_dir, digests, main_path
+
+
+THREADS_4T = 8
+# phase 4t's process: the JAX package refused, os.fork raising, and each
+# pass's graph artifact digests recorded as phase 4 records them
+_THREADS_LAUNCHER = """
+import json, os, sys
+import chip_smoke
+sys.meta_path.insert(0, chip_smoke._RefuseJaxPackage())
+def _no_fork():
+    raise RuntimeError("the port forked")
+os.fork = _no_fork
+from metamdbg_tpu_torch.pipeline import asm
+digests_path = sys.argv.pop(1)
+digests, snapshot = {}, asm.Pipeline._save_pass_snapshot
+def record_pass(self, k):
+    digests[str(k)] = chip_smoke.pass_digests(self.tmp_dir, k, self.first_k,
+                                              k == self.last_k)
+    snapshot(self, k)
+asm.Pipeline._save_pass_snapshot = record_pass
+from metamdbg_tpu_torch.__main__ import main
+rc = main(sys.argv[1:])
+with open(digests_path, "w") as f:
+    json.dump(digests, f)
+sys.exit(rc)
+"""
+
+
+def threads_phase(work, dev, fq, e2e_out, e2e_digests, e2e_run):
+    """Phase 4t: phase 4's reads through `python -m metamdbg_tpu_torch asm
+    --device cuda --threads 8` in a subprocess, started when every other
+    phase has ended. Its files must be phase 4's; prints its walls and
+    timing lines beside phase 4's (`e2e_run`: its wall and timing lines)
+    and its own peak RSS."""
+    e2e_wall, e2e_timing = e2e_run
+    print(f"threads: cpu_count {os.cpu_count()}, loadavg "
+          f"{os.getloadavg()} at the start", flush=True)
+    out = os.path.join(work, "port_threads")
+    digests_path = os.path.join(work, "port_threads_digests.json")
+    log_path = os.path.join(work, "port_threads.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        rc = subprocess.run(
+            [sys.executable, "-c", _THREADS_LAUNCHER, digests_path, "asm",
+             "--out-dir", out, "--in-hifi", fq, "--device", dev.type,
+             "--threads", str(THREADS_4T)], cwd=REPO, stdout=logf,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=REPO,
+                     METAMDBG_TPU_KEEP_TMP="1")).returncode
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 4t exited {rc}:\n{open(log_path).read()[-4000:]}")
+    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+    port = f"port:{dev.type}"
+    if any(r != port for r in prov["stages"].values()):
+        fail(f"phase 4t stages {prov['stages']}")
+    digests = json.load(open(digests_path))
+    if digests != e2e_digests:
+        diff = [k for k in sorted(set(digests) | set(e2e_digests), key=int)
+                if digests.get(k) != e2e_digests.get(k)]
+        fail(f"phase 4t: graph artifacts differ from phase 4's at k {diff}")
+    names = ("read_data_init.txt", "read_stats.txt",
+             "read_data_corrected.txt", *BASESPACE_OUTPUTS)
+    for name in names:
+        a = open(os.path.join(e2e_out, "tmp", name), "rb").read()
+        b = open(os.path.join(out, "tmp", name), "rb").read()
+        if a != b:
+            fail(f"phase 4t: {name} differs from phase 4's")
+    if not _same_contigs(os.path.join(e2e_out, "contigs.fasta.gz"),
+                         os.path.join(out, "contigs.fasta.gz")):
+        fail("phase 4t: contigs.fasta.gz differs from phase 4's")
+    walls, rss = _stage_walls(out)
+    walls_4, rss_4 = _stage_walls(e2e_out)
+    for name, dt in walls.items():
+        print(f"threads stage {name}: {dt:.2f} s at --threads "
+              f"{THREADS_4T}, {walls_4.get(name, 0.0):.2f} s at --threads 1 "
+              f"(phase 4)")
+    for line in e2e_timing:
+        print(f"threads log, --threads 1 (phase 4): {line}")
+    for line in _timing_lines(out):
+        print(f"threads log, --threads {THREADS_4T}: {line}")
+    print(f"threads: asm wall {wall:.1f} s at --threads {THREADS_4T} (its "
+          f"process from start to exit), {e2e_wall:.1f} s at --threads 1 "
+          f"(phase 4); peak RSS {rss} (its own process, rose at "
+          f"{_rss_rises(out)}; phase 4's {rss_4} is chip_smoke.py's); "
+          f"loadavg {os.getloadavg()} at the end; "
+          f"{len(digests)} passes' graph artifacts, {len(names)} files and "
+          f"contigs.fasta.gz identical to phase 4's")
+    return {"threads": THREADS_4T, "asm_wall_s": wall, "peak_rss": rss,
+            "stage_walls_s": walls, "timing": _timing_lines(out),
+            "phase4": {"asm_wall_s": e2e_wall, "stage_walls_s": walls_4,
+                       "timing": e2e_timing},
+            "cpu_count": os.cpu_count()}
 
 
 def ont_phase(work, dev, fq):
@@ -1443,7 +1573,7 @@ def ont_phase(work, dev, fq):
     walls, rss = _stage_walls(out)
     for name, dt in walls.items():
         print(f"ont stage {name}: {dt:.2f} s")
-    print(f"ont peak RSS {rss}")
+    print(f"ont peak RSS {rss} (chip_smoke.py's process, phases 1-8)")
     for line in open(os.path.join(out, "metaMDBG.log")):
         if "orrection checksum" in line or "correction partitions" in line \
                 or "correction timing" in line:
@@ -1796,6 +1926,7 @@ from metamdbg_tpu_torch.__main__ import main
 sys.exit(main(sys.argv[1:]))
 """
 SHARDED_WORLD = 2
+SHARDED_THREADS = 4   # host threads a rank (--threads)
 SHARDED_STAGES = {"readCorrection": "pair_join",
                   "k4_createGraph": "count_table", "toBasespace": "polish"}
 # phase 11b's synthetic inputs: the k = 4 table of the 10.14 Gbp HiFi run
@@ -1815,7 +1946,7 @@ def _free_port():
 
 
 def sharded_start(work, fq, dev):
-    """Phase 11: starts `asm --in-ont --device cuda --threads 1` on the ONT
+    """Phase 11: starts `asm --in-ont --device cuda --threads 4` on the ONT
     reads as SHARDED_WORLD ranks of one group over gloo, all on this card,
     each with its own out dir and one torch thread (as torchrun gives each
     of several ranks on a host). Returns the ranks' (process, out dir,
@@ -1834,7 +1965,8 @@ def sharded_start(work, fq, dev):
         with open(log_path, "w") as logf:
             proc = subprocess.Popen(
                 [sys.executable, "-c", _RANK_LAUNCHER, "asm", "--out-dir",
-                 out, "--in-ont", fq, "--device", dev.type, "--threads", "1"],
+                 out, "--in-ont", fq, "--device", dev.type, "--threads",
+                 str(SHARDED_THREADS)],
                 cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
         ranks.append((proc, out, log_path, time.perf_counter()))
     return ranks
@@ -1884,6 +2016,8 @@ def sharded_phase(ranks, ont_out, dev):
         walls, rss = _stage_walls(out)
         for name, dt in walls.items():
             print(f"sharded rank {rank} stage {name}: {dt:.2f} s")
+        for line in _timing_lines(out):
+            print(f"sharded rank {rank} log: {line}")
         k5 = sharded["k4_createGraph"]["count_table"]
         k6 = sharded["readCorrection"]["pair_join"]
         poa = sharded["toBasespace"]["polish"]
@@ -2115,8 +2249,8 @@ def main():
         chain_result = chain_phase(dev)
         chain_dp_result = chain_dp_phase(dev)
         fq = reads_wait(hifi_job, "e2e")
-        out, launches, _, params_dir, digests, main_path = e2e_phase(
-            work, dev, fq)
+        out, launches, e2e_run, params_dir, digests, main_path = \
+            e2e_phase(work, dev, fq)
         rs_ref, rs_job = read_selection_reference_start(work, fq)
         graph_job = graph_reference_start(work, out, params_dir, digests)
         bs_ref, bs_job = basespace_reference_start(work, fq, out)
@@ -2148,6 +2282,7 @@ def main():
         gfa_reference_phase("ont", ont_gfa_ref, ont_gfa_job, ont_out, ont_k,
                             ont_gfa)
         two_ranks = sharded_phase(ranks, ont_out, dev)
+        threads = threads_phase(work, dev, fq, out, digests, e2e_run)
     finally:
         for proc, *_ in jobs:
             if proc.poll() is None:
@@ -2166,6 +2301,7 @@ def main():
                 for tag, r in (("hifi", hifi_gfa), ("ont", ont_gfa))}
         return {**runs, "max_abs_err": max(hifi_gfa[3], ont_gfa[3])}
 
+    print(json.dumps({"threads": threads}))
     print(json.dumps({"sharded": {"two_ranks_gloo_one_card": two_ranks,
                                   "one_rank_nccl": nccl}}))
     print(json.dumps({"kernels": [

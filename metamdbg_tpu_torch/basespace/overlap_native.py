@@ -1,11 +1,12 @@
 """ctypes binding to the native overlap/mapping engine (native/overlap.cpp).
 
-One call maps a batch of pre-sketched queries against a SeqIndex (OpenMP
-across queries, on `n_threads` threads where the library was built with
-OpenMP): the read-vs-read, read-vs-contig and contig-vs-contig mapping of
-the base-space stages. The port of metamdbg_tpu/basespace/overlap_native.py,
-loaded through io/native.py; there is no Python fallback (the JAX package's
-numpy oracle, overlap.map_sketched_numpy, is not ported)."""
+`map_sketched_batch` maps a batch of pre-sketched queries against a
+SeqIndex, packed once and run in ranges of queries, one engine call per
+range on `n_threads` Python threads (utils/threadmap.py): the read-vs-read,
+read-vs-contig and contig-vs-contig mapping of the base-space stages. The
+port of metamdbg_tpu/basespace/overlap_native.py, loaded through
+io/native.py; there is no Python fallback (the JAX package's numpy oracle,
+overlap.map_sketched_numpy, is not ported)."""
 
 import ctypes
 import threading
@@ -13,6 +14,7 @@ import threading
 import numpy as np
 
 from ..io import native
+from ..utils import threadmap
 
 _LIB = None
 
@@ -40,8 +42,7 @@ def _load() -> ctypes.CDLL:
     return _LIB
 
 
-def _ptr(a, ct):
-    return a.ctypes.data_as(ctypes.POINTER(ct))
+_ptr = native.ptr
 
 
 class PairIndex:
@@ -196,79 +197,94 @@ def map_sketched_batch(index, queries, density, min_span, max_occ, band,
         if 0 <= tid <= max_tid:
             tid_lengths[tid] = ln
 
-    q_offs = np.zeros(nq + 1, np.int64)
-    for i, q in enumerate(queries):
-        q_offs[i + 1] = q_offs[i] + q[0].shape[0]
-    tot = int(q_offs[-1])
-    q_vals = np.empty(tot, np.uint32)
-    q_pos = np.empty(tot, np.int64)
-    q_dirs = np.empty(tot, np.uint8)
-    q_lens = np.empty(nq, np.int64)
-    exclude = np.empty(nq, np.int64)
-    for i, (v, p, d, qlen, ex) in enumerate(queries):
-        a, b = q_offs[i], q_offs[i + 1]
-        q_vals[a:b] = v
-        q_pos[a:b] = p
-        q_dirs[a:b] = d
-        q_lens[i] = qlen
-        exclude[i] = ex
+    with threadmap.packing("map"):
+        q_offs = np.zeros(nq + 1, np.int64)
+        for i, q in enumerate(queries):
+            q_offs[i + 1] = q_offs[i] + q[0].shape[0]
+        tot = int(q_offs[-1])
+        q_vals = np.empty(tot, np.uint32)
+        q_pos = np.empty(tot, np.int64)
+        q_dirs = np.empty(tot, np.uint8)
+        q_lens = np.empty(nq, np.int64)
+        exclude = np.empty(nq, np.int64)
+        for i, (v, p, d, qlen, ex) in enumerate(queries):
+            a, b = q_offs[i], q_offs[i + 1]
+            q_vals[a:b] = v
+            q_pos[a:b] = p
+            q_dirs[a:b] = d
+            q_lens[i] = qlen
+            exclude[i] = ex
 
     ivals = np.ascontiguousarray(index.vals, np.uint32)
     itids = np.ascontiguousarray(index.tids, np.int64)
     ipos = np.ascontiguousarray(index.pos, np.int64)
     idirs = np.ascontiguousarray(index.dirs, np.uint8)
 
-    chain_cap = 4 * nq + 64
-    anchor_cap = tot + 1024
-    for _attempt in range(2):
-        chain_offs = np.zeros(nq + 1, np.int64)
-        out_qs = np.empty(chain_cap, np.int64)
-        out_qe = np.empty(chain_cap, np.int64)
-        out_ts = np.empty(chain_cap, np.int64)
-        out_te = np.empty(chain_cap, np.int64)
-        out_matches = np.empty(chain_cap, np.int64)
-        out_identity = np.empty(chain_cap, np.float64)
-        out_tid = np.empty(chain_cap, np.int32)
-        out_rev = np.empty(chain_cap, np.uint8)
-        anchor_offs = np.zeros(chain_cap + 1, np.int64)
-        out_aq = np.empty(anchor_cap, np.int64)
-        out_at = np.empty(anchor_cap, np.int64)
-        needed = np.zeros(2, np.int64)
-        rc = lib.ovl_map_batch(
-            _ptr(ivals, ctypes.c_uint32), _ptr(itids, ctypes.c_int64),
-            _ptr(ipos, ctypes.c_int64), _ptr(idirs, ctypes.c_uint8),
-            np.int64(ni), _ptr(tid_lengths, ctypes.c_int64),
-            _ptr(q_vals, ctypes.c_uint32), _ptr(q_pos, ctypes.c_int64),
-            _ptr(q_dirs, ctypes.c_uint8), _ptr(q_offs, ctypes.c_int64),
-            _ptr(q_lens, ctypes.c_int64), np.int32(nq),
-            _ptr(exclude, ctypes.c_int64),
-            ctypes.c_uint8(1 if exclude_self_diag else 0),
-            ctypes.c_double(density), np.int64(min_span), np.int64(max_occ),
-            np.int64(band), np.int32(max_chains), np.int64(min_anchors),
-            np.int32(align_l), _ptr(chain_offs, ctypes.c_int64),
-            _ptr(out_qs, ctypes.c_int64), _ptr(out_qe, ctypes.c_int64),
-            _ptr(out_ts, ctypes.c_int64), _ptr(out_te, ctypes.c_int64),
-            _ptr(out_matches, ctypes.c_int64),
-            _ptr(out_identity, ctypes.c_double),
-            _ptr(out_tid, ctypes.c_int32), _ptr(out_rev, ctypes.c_uint8),
-            np.int64(chain_cap), _ptr(anchor_offs, ctypes.c_int64),
-            _ptr(out_aq, ctypes.c_int64), _ptr(out_at, ctypes.c_int64),
-            np.int64(anchor_cap), _ptr(needed, ctypes.c_int64),
-            np.int32(n_threads))
-        if rc >= 0:
-            out = []
-            for i in range(nq):
-                chains = []
-                for c in range(int(chain_offs[i]), int(chain_offs[i + 1])):
-                    a, b = int(anchor_offs[c]), int(anchor_offs[c + 1])
-                    chains.append((int(out_qs[c]), int(out_qe[c]),
-                                   int(out_ts[c]), int(out_te[c]),
-                                   int(out_matches[c]),
-                                   float(out_identity[c]), int(out_tid[c]),
-                                   bool(out_rev[c]), out_aq[a:b].copy(),
-                                   out_at[a:b].copy()))
-                out.append(chains)
-            return out
-        chain_cap = max(chain_cap, int(needed[0]))
-        anchor_cap = max(anchor_cap, int(needed[1]))
-    raise RuntimeError("ovl_map_batch capacity retry failed")
+    def map_range(r):
+        # q_offs holds absolute offsets into the query arrays: a range
+        # moves only the per-query pointers; its outputs are its own
+        lo, hi = r
+        n = hi - lo
+        chain_cap = 4 * n + 64
+        anchor_cap = int(q_offs[hi] - q_offs[lo]) + 1024
+        for _attempt in range(2):
+            chain_offs = np.zeros(n + 1, np.int64)
+            out_qs = np.empty(chain_cap, np.int64)
+            out_qe = np.empty(chain_cap, np.int64)
+            out_ts = np.empty(chain_cap, np.int64)
+            out_te = np.empty(chain_cap, np.int64)
+            out_matches = np.empty(chain_cap, np.int64)
+            out_identity = np.empty(chain_cap, np.float64)
+            out_tid = np.empty(chain_cap, np.int32)
+            out_rev = np.empty(chain_cap, np.uint8)
+            anchor_offs = np.zeros(chain_cap + 1, np.int64)
+            out_aq = np.empty(anchor_cap, np.int64)
+            out_at = np.empty(anchor_cap, np.int64)
+            needed = np.zeros(2, np.int64)
+            rc = lib.ovl_map_batch(
+                _ptr(ivals, ctypes.c_uint32), _ptr(itids, ctypes.c_int64),
+                _ptr(ipos, ctypes.c_int64), _ptr(idirs, ctypes.c_uint8),
+                np.int64(ni), _ptr(tid_lengths, ctypes.c_int64),
+                _ptr(q_vals, ctypes.c_uint32), _ptr(q_pos, ctypes.c_int64),
+                _ptr(q_dirs, ctypes.c_uint8),
+                _ptr(q_offs, ctypes.c_int64, lo),
+                _ptr(q_lens, ctypes.c_int64, lo), np.int32(n),
+                _ptr(exclude, ctypes.c_int64, lo),
+                ctypes.c_uint8(1 if exclude_self_diag else 0),
+                ctypes.c_double(density), np.int64(min_span),
+                np.int64(max_occ), np.int64(band), np.int32(max_chains),
+                np.int64(min_anchors), np.int32(align_l),
+                _ptr(chain_offs, ctypes.c_int64),
+                _ptr(out_qs, ctypes.c_int64), _ptr(out_qe, ctypes.c_int64),
+                _ptr(out_ts, ctypes.c_int64), _ptr(out_te, ctypes.c_int64),
+                _ptr(out_matches, ctypes.c_int64),
+                _ptr(out_identity, ctypes.c_double),
+                _ptr(out_tid, ctypes.c_int32), _ptr(out_rev, ctypes.c_uint8),
+                np.int64(chain_cap), _ptr(anchor_offs, ctypes.c_int64),
+                _ptr(out_aq, ctypes.c_int64), _ptr(out_at, ctypes.c_int64),
+                np.int64(anchor_cap), _ptr(needed, ctypes.c_int64),
+                np.int32(1))
+            if rc >= 0:
+                out = []
+                for i in range(n):
+                    chains = []
+                    for c in range(int(chain_offs[i]),
+                                   int(chain_offs[i + 1])):
+                        a, b = int(anchor_offs[c]), int(anchor_offs[c + 1])
+                        chains.append((int(out_qs[c]), int(out_qe[c]),
+                                       int(out_ts[c]), int(out_te[c]),
+                                       int(out_matches[c]),
+                                       float(out_identity[c]),
+                                       int(out_tid[c]), bool(out_rev[c]),
+                                       out_aq[a:b].copy(), out_at[a:b].copy()))
+                    out.append(chains)
+                return out
+            chain_cap = max(chain_cap, int(needed[0]))
+            anchor_cap = max(anchor_cap, int(needed[1]))
+        raise RuntimeError("ovl_map_batch capacity retry failed")
+
+    # the engine's own loop pulled 16 queries at a time: a batch of up to
+    # 16 queries (the tiler's) stays one call on the calling thread
+    return [chains for part in threadmap.thread_map(
+        map_range, threadmap.ranges(nq, n_threads, 16), n_threads)
+        for chains in part]

@@ -15,7 +15,8 @@ validate contigs (hpp:2744-2868).
 The port of metamdbg_tpu/basespace/polisher.py. Sketches come from kernel
 K1 on `device` (contigs, and reads the tiler did not sketch, one batch
 each); mapping, window cutting and POA are the native engines
-(native/overlap.cpp, window_cut.cpp, poa.cpp) on `n_threads` threads. The
+(native/overlap.cpp, window_cut.cpp, poa.cpp) on `n_threads` Python
+threads, each batch packed once in Python and run in ranges. The
 JAX package's fork-pool fallbacks and its Python window-cut oracle
 (find_breaking_points) are not ported; the POA batch goes to the native
 engine directly (one GPU, one host: no multi-host sharding).
@@ -27,6 +28,7 @@ import time
 import numpy as np
 
 from ..parallel.polish_mesh import polish_windows_distributed
+from ..utils import threadmap
 from . import overlap, overlap_native, window_cut_native
 
 log = logging.getLogger("metamdbg_tpu_torch")
@@ -307,6 +309,7 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
     ranks (parallel/polish_mesh.py).
     """
     _t0 = time.perf_counter()
+    pack0 = dict(threadmap.pack_seconds)
     all_alignments = map_reads_to_contigs(contigs, reads, device,
                                           read_sketches=read_sketches,
                                           n_threads=n_threads)
@@ -393,23 +396,25 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
     batch = []
     keys = []
     results: dict = {}
-    for cid, contig_windows in window_seqs.items():
-        seq = contigs[cid]
-        for wid, windows in enumerate(contig_windows):
-            ws = wid * WINDOW_LEN
-            we = min(seq.shape[0], ws + WINDOW_LEN)
-            backbone = seq[ws:we].tobytes()
-            if active is not None and not active[cid][wid]:
-                results[(cid, wid)] = backbone
-                continue
-            if len(windows) < 2:
-                results[(cid, wid)] = backbone
-                continue
-            windows.sort(key=lambda w: (w.pos_start, w.hash()))
-            frags = [(w.seq, w.qual, w.pos_start, w.pos_end) for w in windows]
-            batch.append((backbone, frags))
-            keys.append((cid, wid, len(windows),
-                         wid == len(contig_windows) - 1))
+    with threadmap.packing("poa"):
+        for cid, contig_windows in window_seqs.items():
+            seq = contigs[cid]
+            for wid, windows in enumerate(contig_windows):
+                ws = wid * WINDOW_LEN
+                we = min(seq.shape[0], ws + WINDOW_LEN)
+                backbone = seq[ws:we].tobytes()
+                if active is not None and not active[cid][wid]:
+                    results[(cid, wid)] = backbone
+                    continue
+                if len(windows) < 2:
+                    results[(cid, wid)] = backbone
+                    continue
+                windows.sort(key=lambda w: (w.pos_start, w.hash()))
+                frags = [(w.seq, w.qual, w.pos_start, w.pos_end)
+                         for w in windows]
+                batch.append((backbone, frags))
+                keys.append((cid, wid, len(windows),
+                             wid == len(contig_windows) - 1))
 
     if batch:
         for (cid, wid, nseq, is_last), (cons, covs) in zip(
@@ -456,10 +461,14 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
             circ = "yes" if is_circular else "no"
             header_strings[cid] = (f"ctg{orig_index} length={length} "
                                    f"coverage={coverage:.2f} circular={circ}")
-    log.info("  polish pass timing: map %.1fs cut %.1fs index %.1fs "
-             "poa %.1fs stitch %.1fs (%d windows, %d fragments)",
-             _t_map - _t0, _t_cut - _t_map, _t_index - _t_cut,
-             _t_poa - _t_index, time.perf_counter() - _t_poa,
-             len(batch), len(items))
+    pack = {name: threadmap.pack_seconds.get(name, 0.0)
+            - pack0.get(name, 0.0) for name in ("map", "cut", "poa")}
+    log.info("  polish pass timing: map %.1fs (pack %.1fs) cut %.1fs "
+             "(pack %.1fs) index %.1fs pack %.1fs poa %.1fs stitch %.1fs "
+             "(%d windows, %d fragments, %d threads)",
+             _t_map - _t0, pack["map"], _t_cut - _t_map, pack["cut"],
+             _t_index - _t_cut, pack["poa"],
+             _t_poa - _t_index - pack["poa"], time.perf_counter() - _t_poa,
+             len(batch), len(items), n_threads)
     return (out_contigs, out_headers, contig_coverages, header_strings,
             changed)

@@ -16,10 +16,14 @@ write), so all junction overlaps are forward-strand.
 
 The port of metamdbg_tpu/basespace/tiling.py. Read and contig sketches come
 from kernel K1 on the tiler's `device` (overlap.sketch_many), one batch per
-contig ahead of the walk; the overlaps from the native engine, on
-`n_threads` threads. The JAX package's parallel precompute of the
-erroneous-read cache (tiling.py:_precompute_erroneous, which forks) is not
-carried over: the walk fills the same cache lazily, with the same values.
+contig ahead of the walk; the overlaps from the native engine. The JAX
+package's parallel precompute of the erroneous-read cache
+(tiling.py:_precompute_erroneous, which forks) is not carried over: the
+walk fills the same cache lazily, with the same values. Ported on Python
+threads, it made the tiling of a 4 Mb HiFi isolate 182.6-271.8 s at 8
+threads against 11.7-12.5 s without it, on an 8-core NVIDIA H100 host
+(tools/thread_walls.py; PERF.md §6): the check is Python under the
+interpreter lock, run for every read where the walk checks a few.
 """
 
 import numpy as np

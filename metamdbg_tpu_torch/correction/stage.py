@@ -4,10 +4,10 @@ The port of metamdbg_tpu/correction/stage.py, after ReadCorrection::execute
 (src/readSelection/ReadCorrection.hpp:1759-2151): memory model ->
 all-vs-all mapping (correction/mapper.py, on `device`, with kernel K4) ->
 Jaccard-BFS read partitioning -> per-partition correction on the native
-engine (correction/poa_native.py, `n_threads` threads, nothing forks) ->
-read_data_corrected.txt ({u32 n, u8 linear, u32 minimizers[n]} records,
-ReadCorrection.hpp:6367-6484). The reads are re-sketched at correction
-density on `device` through kernel K1 (sketch/batch.py).
+engine (correction/poa_native.py, `n_threads` Python threads, nothing
+forks) -> read_data_corrected.txt ({u32 n, u8 linear, u32 minimizers[n]}
+records, ReadCorrection.hpp:6367-6484). The reads are re-sketched at
+correction density on `device` through kernel K1 (sketch/batch.py).
 
 Determinism notes:
 - the reference's corrected-record order equals ascending read index within
@@ -31,6 +31,7 @@ from ..constants import CONTIG_LINEAR
 from ..io import fastq, records
 from ..sketch import batch, read_selection
 from ..sketch.palindrome import purge_palindrome
+from ..utils import threadmap
 from ..utils.hashing import minimizer_is_selected
 from . import mapper, poa_native
 
@@ -181,6 +182,7 @@ def run_read_correction(tmp_dir: str, params: records.Parameters, device,
 
     checksum = 0
     t_poa = 0.0
+    pack0 = threadmap.pack_seconds.get("correction", 0.0)
     out_path = os.path.join(tmp_dir, "read_data_corrected.txt")
     with records.ReadDataWriter(out_path, with_quality=False) as writer:
         for (to_load, to_correct) in partitions:
@@ -197,11 +199,14 @@ def run_read_correction(tmp_dir: str, params: records.Parameters, device,
     # determinism oracle: the reference logs the same per-stage checksum
     # (ReadCorrection.hpp:1982-1986 area)
     log.info("Correction checksum: %d", checksum)
+    pack = threadmap.pack_seconds.get("correction", 0.0) - pack0
     log.info("correction timing: map %.1fs partition %.1fs sketch %.1fs "
-             "poa %.1fs write %.1fs (%d reads, %d alignments, %d threads)",
-             t_map - t0, t_part - t_map, t_sketch - t_part, t_poa,
-             time.perf_counter() - t_sketch - t_poa, len(reads),
-             sum(len(a) for a in align_lists), max(n_threads, 1))
+             "pack %.1fs poa %.1fs write %.1fs (%d reads, %d alignments, "
+             "%d threads)",
+             t_map - t0, t_part - t_map, t_sketch - t_part, pack,
+             t_poa - pack, time.perf_counter() - t_sketch - t_poa,
+             len(reads), sum(len(a) for a in align_lists),
+             max(n_threads, 1))
     return checksum
 
 

@@ -89,6 +89,13 @@ def build_all():
                 compile_library(name, os.path.join(NATIVE_DIR, name), openmp)
 
 
+def ptr(arr: np.ndarray, ctype, first: int = 0):
+    """A ctypes pointer to arr[first]: an engine call on a range of a
+    packed batch gets its per-item arrays from the range's first item."""
+    return ctypes.cast(arr.ctypes.data + first * arr.itemsize,
+                       ctypes.POINTER(ctype))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Load native/<name>, building native/ first where needed."""
     lib = _LIBS.get(name)

@@ -7,13 +7,15 @@ subcommand, tmp cleanup at the end. The on-disk state is the JAX
 package's, so a run of either package resumes the other's.
 
 Every stage runs in the port, on `device`, with the native host
-libraries on `n_threads` threads; nothing forks: read selection, ONT read
+libraries on `n_threads` Python threads, one pool per stage
+(utils/threadmap.py); nothing forks: read selection, ONT read
 correction, the minimizer-space ladder (first pass, second pass, every
 multiplex pass, contigs and toMinspace), post-processing (derep, overlaps,
 repeats) and toBasespace.
 Observability: `metaMDBG.log` next to the output, per-stage wall-clock and
-peak RSS in tmp/memoryTrack.txt and tmp/perf.txt, and tmp/device.json,
-rewritten after every stage: the device, the route of each stage
+the process's own peak RSS (`peak_rss_gb`) in tmp/memoryTrack.txt and
+tmp/perf.txt, and tmp/device.json, rewritten after every stage: the
+device, the route of each stage
 ("port:<device>"), and for each kernel (sketch, window hash, chain, chain
 DP) its launches in all and per stage (a stage that launched a kernel no
 time has no entry for it); the sketch kernel's also counts its overflow
@@ -33,8 +35,8 @@ import gzip
 import json
 import logging
 import os
-import resource
 import shutil
+import threading
 import time
 
 import numpy as np
@@ -51,14 +53,58 @@ from ..kernels import chain_dp as kchain_dp
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
+from ..utils import threadmap
 from . import open_device
 
 log = logging.getLogger("metamdbg_tpu_torch")
 
 
+def _status_kb(field: str):
+    """A `kB` field of /proc/self/status, or None where it has none."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1])
+    return None
+
+
+# where /proc/self/status has no VmHWM: the highest VmRSS read so far
+_rss_peak_kb = [0]
+_rss_lock = threading.Lock()
+_rss_sampler: list = []
+
+
+def _note_rss() -> int:
+    kb = _status_kb("VmRSS") or 0
+    with _rss_lock:
+        _rss_peak_kb[0] = max(_rss_peak_kb[0], kb)
+        return _rss_peak_kb[0]
+
+
+def start_rss_sampler(interval_s: float = 0.05):
+    """Where /proc/self/status has no VmHWM (gVisor's has none), read
+    VmRSS every `interval_s` on a daemon thread for the life of the
+    process, so that peak_rss_gb sees the peaks between its calls."""
+    if _rss_sampler or _status_kb("VmHWM") is not None:
+        return
+
+    def sample():
+        while True:
+            _note_rss()
+            time.sleep(interval_s)
+
+    thread = threading.Thread(target=sample, name="metamdbg_rss",
+                              daemon=True)
+    thread.start()
+    _rss_sampler.append(thread)
+
+
 def peak_rss_gb() -> float:
-    ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    return ru / 1024.0 / 1024.0  # linux: KiB
+    """This process's own peak resident set: VmHWM, which starts afresh at
+    exec, or where /proc has none the highest VmRSS sampled (getrusage's
+    ru_maxrss does not start afresh: a child reads its parent's peak)."""
+    kb = _status_kb("VmHWM")
+    return (kb if kb is not None else _note_rss()) / 1024.0 / 1024.0
 
 
 def attach_log_file(out_dir: str):
@@ -89,6 +135,7 @@ class Pipeline:
                  skip_correction: bool = False,
                  all_assembly_graph: bool = False, n_threads: int = 1):
         self.device = open_device(device)
+        start_rss_sampler()
         native.build_all()
         self.out_dir = out_dir
         self.tmp_dir = os.path.join(out_dir, "tmp")
@@ -140,7 +187,8 @@ class Pipeline:
                    (self.chain_dp_launches, kchain_dp))
         before = [k.launches for _, k in kernels]
         before_sharded = {n: dict(c) for n, c in parallel.activity.items()}
-        yield
+        with threadmap.stage_pool(self.n_threads):
+            yield
         dt = time.time() - t0
         for (counts, k), n0 in zip(kernels, before):
             if k.launches > n0:
