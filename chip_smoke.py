@@ -36,7 +36,9 @@ Phases, each of which exits non-zero when it fails:
    w = 16;
 3c. row counting (K2, torch ops): kernels/count.py on the card against the
    same function on CPU tensors, on a (2^20, 5) table with repeats: the
-   unique rows and counts must be identical;
+   unique rows and counts must be identical. Prints its time (CUDA events
+   around 20 calls, which wait on the host), its byte bound and the time
+   of torch.unique(dim=0, return_counts=True) on the same rows;
 3d. chain kernel (K3): the read-vs-contig chain DP against its plain torch
    version on the card, on 16,384 anchor groups of 2-300 anchors and three
    of 5,000-10,000 (both strands, noise anchors, planted equal-score ties),
@@ -61,10 +63,12 @@ Phases, each of which exits non-zero when it fails:
    the window hash kernel in every createGraph pass and the chain kernel
    in toBasespace; every stage, from readSelection to toBasespace, must
    have run as port:cuda, and the output must be one circular contig
-   within 2 kb of 4 Mb. The sha256 of each pass's graph artifacts is
-   recorded as the pass ends. Prints stage walls. chip_smoke wraps the
-   sketch and window hash kernels' launches in this process (no hook in
-   the package) and keeps a copy of each launch's inputs; after the run it
+   within 2 kb of 4 Mb. K2's calls on the card are counted per stage
+   (tmp/device.json) and printed. The sha256 of each pass's graph
+   artifacts is recorded as the pass ends. Prints stage walls.
+   chip_smoke wraps the sketch and window hash kernels' launches in this
+   process (no hook in the package) and keeps a copy of each launch's
+   inputs; after the run it
    prints a histogram of the KW launches by size, then launches again,
    against the plain version and timed, every sketch launch, the KW
    launches that hold 90% of the run's windows x width and every KW
@@ -158,25 +162,48 @@ subprocess, all four at once:
    second call (hash, route, split exchange, row exchange, local
    sort-count or join, gather, merge or expand) beside its bound, the
    bytes it must move at the memory rate. The group is torn down after.
-4t. `--threads 8` (started when every other phase and reference has
-   ended, so that its walls have the host's cores): phase 4's reads
-   through `python -m metamdbg_tpu_torch asm --in-hifi ... --device cuda
-   --threads 8` in a subprocess, the JAX package refused and `os.fork`
-   raising: the native engines' batches split over 8 Python threads
-   (utils/threadmap.py). Every pass's graph artifact digests, read
-   selection's three files, post-processing's and toBasespace's files and
-   contigs.fasta.gz (outside bytes 4-7) must be byte-identical to phase
-   4's. Prints os.cpu_count() and os.getloadavg() at its start, its stage
+4t. `--threads 8` with the bounded-memory paths (started when every
+   other phase and reference has ended, so that its walls have the host's
+   cores): phase 4's reads through `python -m metamdbg_tpu_torch asm
+   --in-hifi ... --device cuda --threads 8` in a subprocess, the JAX
+   package refused and `os.fork` raising, under BOUND_ENV (below): the
+   native engines' batches split over 8 Python threads
+   (utils/threadmap.py), the first pass counted in read chunks, the
+   polish partitions cut under the bound. Every pass's graph artifact
+   digests, read selection's three files, post-processing's and
+   toBasespace's files and contigs.fasta.gz (outside bytes 4-7) must be
+   byte-identical to phase 4's, and the count must have run in more than
+   one chunk. Prints os.cpu_count() and os.getloadavg() at its start, the
+   count chunks, correction partitions and polish partitions, its stage
    walls beside phase 4's, both runs' tiling and polish pass timing lines
    (map, cut, index, packing and POA walls), its asm wall and its own
    peak RSS.
+12. ONT with the bounded-memory paths (after phase 4t): phase 8's reads
+   through `asm --in-ont --device cuda --threads 8` in a subprocess, the
+   JAX package refused and `os.fork` raising, under BOUND_ENV. The count
+   chunks, correction partitions and polish partitions must each be more
+   than one. Correction partitions write the corrected reads partition by
+   partition, in the JAX package as in the port, so read_data_corrected.txt
+   holds phase 8's records in another order (and every later artifact
+   follows that order), and polish partitions polish each contig with
+   the reads of its partition only: neither is phase 8's file. So
+   read_data_init.txt, read_stats.txt, repetitiveMinimizers.bin and
+   readAlignmentsLowDensity.bin (made before the partitions) must be
+   phase 8's; read_data_corrected.txt must hold phase 8's records, and be
+   byte-identical, with the same correction checksum, to the JAX
+   package's read selection and correction under BOUND_ENV (phase 9's
+   reference again, started beside it); the contigs must pass phase 8's
+   length check. Prints the bounded paths' evidence, the stage walls, the
+   asm wall and its own peak RSS.
+BOUND_ENV is tools/scale_run.py's (count table 0.02 GB, correction memory
+0.1 GB, polish partition 0.5 GB), scaled to these inputs (120 and 86 Mbp
+against its 1.1 and 0.55 Gbp): 0.002, 0.01 and 0.05 GB.
 
-The line before the last four is a JSON object with phase 4t's results
-("threads"); the line before the last three one with phases 11 and 11b's
-results ("sharded"). The line before the last two is a JSON object
-describing each kernel: its
-launches in phase 4 (K4's in phase 8), its largest difference from the
-plain version, its time and the plain version's (phase 3 at density
+The line before the last four is a JSON object with phase 4t's and phase
+12's results ("threads", "bounded_ont"); the line before the last three
+one with phases 11 and 11b's results ("sharded"). The line before the
+last two is a JSON object describing each kernel: its launches in phase
+4 (K4's in phase 8), its largest difference from the plain version, its time and the plain version's (phase 3 at density
 0.005, 3b at w = 16, 3d, 3e), `bound_ms`, the least time the card could
 take for the same work on those inputs (the larger of bytes over the
 memory rate and operations over the peak rates), with what bounds it, and
@@ -706,9 +733,18 @@ def count_phase(dev):
     if not (torch.equal(got[0].cpu(), want[0])
             and torch.equal(got[1].cpu(), want[1])):
         fail("row counting on the card differs from the CPU")
-    print(f"row counting (2^20, 5): {want[0].shape[0]} unique rows, "
-          f"identical on the card and the CPU ({dt * 1e3:.1f} ms on the "
-          f"card, first call)")
+    rows_d = cpu.to(dev)
+    ms = _time_ms(lambda: kcount.count_unique_rows(rows_d), graph=False)
+    lib_ms = _time_ms(lambda: torch.unique(rows_d, dim=0,
+                                           return_counts=True), graph=False)
+    # int64 rows read once; unique rows and their int64 counts written once
+    n_uniq = want[0].shape[0]
+    b_ms, b_by = bound(rows.nbytes + n_uniq * (rows.shape[1] + 1) * 8, 0)
+    print(f"row counting (2^20, 5): {n_uniq} unique rows, identical on the "
+          f"card and the CPU ({dt * 1e3:.1f} ms on the card, first call); "
+          f"{ms:.4f} ms a call after a warm-up, bound {b_ms:.4f} ms "
+          f"({b_by}); torch.unique(dim=0, return_counts=True) {lib_ms:.4f} "
+          f"ms")
 
 
 def chain_groups(lengths, seed):
@@ -1289,6 +1325,7 @@ def k1_replay(calls):
 def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     from metamdbg_tpu_torch.__main__ import main
     from metamdbg_tpu_torch.kernels import chain as kchain
+    from metamdbg_tpu_torch.kernels import count as kcount
     from metamdbg_tpu_torch.kernels import sketch as ksketch
     from metamdbg_tpu_torch.kernels import window_hash as kw
     from metamdbg_tpu_torch.pipeline import asm
@@ -1322,6 +1359,7 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     ksketch.reset_counts()
     kw.reset_counts()
     kchain.reset_counts()
+    kcount.reset_counts()
     batch.tile_batches = 0
     try:
         with LaunchRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
@@ -1337,6 +1375,7 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     tile_batches = batch.tile_batches
     kw_launches = kw.launches
     k3_launches = kchain.launches
+    k2_calls = kcount.launches
     if rc != 0:
         fail(f"asm returned {rc}")
 
@@ -1366,6 +1405,14 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     passes = [n for n in stages if n.endswith("_createGraph")]
     if len(passes) != len(digests):
         fail(f"{len(passes)} createGraph stages, {len(digests)} passes")
+    k2 = prov["row_count_k2"]["by_stage"]
+    if sum(k2.values()) != k2_calls or \
+            (dev.type == "cuda") != (k2_calls > 0):
+        fail(f"K2: {k2_calls} calls, per stage {k2}")
+    print(f"e2e: K2 (row counting) calls {k2_calls}: "
+          f"{sum(k2.get(n, 0) for n in passes)} in the {len(passes)} "
+          f"createGraph passes, per other stage "
+          f"{ {n: c for n, c in k2.items() if n not in passes} }")
     by_kernel = {name: prov[name]["by_stage"] for name in
                  ("sketch_kernel", "window_hash_kernel", "chain_kernel")}
     for name, total in (("sketch_kernel", launches),
@@ -1426,6 +1473,11 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
 
 
 THREADS_4T = 8
+# tools/scale_run.py's BOUND_ENV scaled to phases 4t and 12's inputs (see
+# the top)
+BOUND_ENV = {"METAMDBG_TPU_COUNT_TABLE_GB": "0.002",
+             "METAMDBG_TPU_CORRECTION_MEMORY_GB": "0.01",
+             "METAMDBG_TPU_MAX_PARTITION_GB": "0.05"}
 # phase 4t's process: the JAX package refused, os.fork raising, and each
 # pass's graph artifact digests recorded as phase 4 records them
 _THREADS_LAUNCHER = """
@@ -1451,35 +1503,60 @@ sys.exit(rc)
 """
 
 
+def bounded_evidence(out):
+    """Which bounded paths fired in the asm of `out`: count chunks,
+    correction partitions, polish partitions (tools/scale_torch.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import scale_torch
+
+    with open(os.path.join(out, "metaMDBG.log")) as f:
+        ev = scale_torch.bounded_evidence(f.read())
+    return {"count_chunks": (ev["count_chunks"] or [1])[0],
+            "correction_partitions": ev["correction_partitions"],
+            "polish_partitions": ev["polish_partitions"]}
+
+
+def _bounded_run(work, tag, fq, flag, dev):
+    """`asm FLAG fq --device cuda --threads 8` under BOUND_ENV in a
+    subprocess (_THREADS_LAUNCHER); returns (out dir, each pass's graph
+    digests, asm wall)."""
+    out = os.path.join(work, tag)
+    digests_path = os.path.join(work, f"{tag}_digests.json")
+    log_path = os.path.join(work, f"{tag}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        rc = subprocess.run(
+            [sys.executable, "-c", _THREADS_LAUNCHER, digests_path, "asm",
+             "--out-dir", out, flag, fq, "--device", dev.type,
+             "--threads", str(THREADS_4T)], cwd=REPO, stdout=logf,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=REPO, METAMDBG_TPU_KEEP_TMP="1",
+                     **BOUND_ENV)).returncode
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{tag} exited {rc}:\n{open(log_path).read()[-4000:]}")
+    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
+    if any(r != f"port:{dev.type}" for r in prov["stages"].values()):
+        fail(f"{tag} stages {prov['stages']}")
+    return out, json.load(open(digests_path)), wall
+
+
 def threads_phase(work, dev, fq, e2e_out, e2e_digests, e2e_run):
     """Phase 4t: phase 4's reads through `python -m metamdbg_tpu_torch asm
-    --device cuda --threads 8` in a subprocess, started when every other
-    phase has ended. Its files must be phase 4's; prints its walls and
+    --device cuda --threads 8` under BOUND_ENV in a subprocess, started
+    when every other phase has ended. Its files must be phase 4's and its
+    count chunked; prints the bounded paths' evidence, its walls and
     timing lines beside phase 4's (`e2e_run`: its wall and timing lines)
     and its own peak RSS."""
     e2e_wall, e2e_timing = e2e_run
     print(f"threads: cpu_count {os.cpu_count()}, loadavg "
           f"{os.getloadavg()} at the start", flush=True)
-    out = os.path.join(work, "port_threads")
-    digests_path = os.path.join(work, "port_threads_digests.json")
-    log_path = os.path.join(work, "port_threads.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as logf:
-        rc = subprocess.run(
-            [sys.executable, "-c", _THREADS_LAUNCHER, digests_path, "asm",
-             "--out-dir", out, "--in-hifi", fq, "--device", dev.type,
-             "--threads", str(THREADS_4T)], cwd=REPO, stdout=logf,
-            stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=REPO,
-                     METAMDBG_TPU_KEEP_TMP="1")).returncode
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        fail(f"phase 4t exited {rc}:\n{open(log_path).read()[-4000:]}")
-    prov = json.load(open(os.path.join(out, "tmp", "device.json")))
-    port = f"port:{dev.type}"
-    if any(r != port for r in prov["stages"].values()):
-        fail(f"phase 4t stages {prov['stages']}")
-    digests = json.load(open(digests_path))
+    out, digests, wall = _bounded_run(work, "port_threads", fq, "--in-hifi",
+                                      dev)
+    evidence = bounded_evidence(out)
+    print(f"threads: bounded paths {evidence} under {BOUND_ENV}")
+    if evidence["count_chunks"] < 2:
+        fail(f"phase 4t: the bounded count did not fire: {evidence}")
     if digests != e2e_digests:
         diff = [k for k in sorted(set(digests) | set(e2e_digests), key=int)
                 if digests.get(k) != e2e_digests.get(k)]
@@ -1512,10 +1589,76 @@ def threads_phase(work, dev, fq, e2e_out, e2e_digests, e2e_run):
           f"{len(digests)} passes' graph artifacts, {len(names)} files and "
           f"contigs.fasta.gz identical to phase 4's")
     return {"threads": THREADS_4T, "asm_wall_s": wall, "peak_rss": rss,
+            "bounded": evidence,
             "stage_walls_s": walls, "timing": _timing_lines(out),
             "phase4": {"asm_wall_s": e2e_wall, "stage_walls_s": walls_4,
                        "timing": e2e_timing},
             "cpu_count": os.cpu_count()}
+
+
+def _records(path):
+    """The minimizer lists of a read_data*.txt file, sorted."""
+    from metamdbg_tpu_torch.io import records
+
+    return sorted(r.minimizers.tolist()
+                  for r in records.read_read_data(path, with_quality=False))
+
+
+def bounded_ont_phase(work, dev, fq, ont_out, ref, job):
+    """Phase 12: phase 8's ONT reads under BOUND_ENV at --threads 8 in a
+    subprocess, after phase 4t. Every bounded path must cut more than one
+    piece; the files made before the partitions must be phase 8's, the
+    corrected reads phase 8's records and the JAX package's file under
+    the same bounds (`ref`, `job`: its reference)."""
+    out, _, wall = _bounded_run(work, "ont_bounded", fq, "--in-ont", dev)
+    evidence = bounded_evidence(out)
+    print(f"bounded ont: bounded paths {evidence} under {BOUND_ENV}")
+    if any((n or 0) < 2 for n in evidence.values()):
+        fail(f"phase 12: a bounded path did not fire: {evidence}")
+    for name in CORRECTION_OUTPUTS[:-1]:
+        a = open(os.path.join(ont_out, "tmp", name), "rb").read()
+        b = open(os.path.join(out, "tmp", name), "rb").read()
+        if a != b:
+            fail(f"phase 12: {name} differs from phase 8's")
+    corrected = os.path.join(out, "tmp", "read_data_corrected.txt")
+    if _records(corrected) != _records(
+            os.path.join(ont_out, "tmp", "read_data_corrected.txt")):
+        fail("phase 12: read_data_corrected.txt holds other records than "
+             "phase 8's")
+    stdout, dt = _wait(job, "JAX package ONT correction under BOUND_ENV")
+    want = json.loads(stdout.strip().splitlines()[-1])["checksum"]
+    if open(os.path.join(ref, "read_data_corrected.txt"), "rb").read() != \
+            open(corrected, "rb").read():
+        fail("phase 12: read_data_corrected.txt differs from the JAX "
+             "package's under the same bounds")
+    sums = [[int(line.rsplit(" ", 1)[-1]) for line in
+             open(os.path.join(d, "metaMDBG.log"))
+             if "Correction checksum: " in line] for d in (ont_out, out)]
+    if sums[1] != [want] or sums[0] != [want]:
+        fail(f"phase 12: correction checksum {sums[1]}, the JAX package's "
+             f"under the same bounds {want}, phase 8's {sums[0]}")
+    headers, lengths = _contigs(out)
+    if abs(sum(lengths) - ONT_TOTAL_LEN) > ONT_LEN_TOLERANCE * ONT_TOTAL_LEN:
+        fail(f"phase 12: contigs total {sum(lengths)} bp, not within "
+             f"{ONT_LEN_TOLERANCE:.0%} of {ONT_TOTAL_LEN}")
+    same = _same_contigs(os.path.join(ont_out, "contigs.fasta.gz"),
+                         os.path.join(out, "contigs.fasta.gz"))
+    print(f"bounded ont: the files made before the partitions identical to "
+          f"phase 8's; read_data_corrected.txt phase 8's records, and "
+          f"identical to the JAX package's under the same bounds (its "
+          f"reference {dt:.1f} s), checksum {want} equal; {len(lengths)} "
+          f"contigs, {sum(lengths)} bp, contigs.fasta.gz "
+          f"{'identical to' if same else 'not'} phase 8's")
+    walls, rss = _stage_walls(out)
+    for name, dt in walls.items():
+        print(f"bounded ont stage {name}: {dt:.2f} s")
+    for line in _timing_lines(out):
+        print(f"bounded ont log: {line}")
+    print(f"bounded ont: asm wall {wall:.1f} s at --threads {THREADS_4T}; "
+          f"peak RSS {rss} (its own process)")
+    return {"threads": THREADS_4T, "asm_wall_s": wall, "peak_rss": rss,
+            "bounded": evidence, "stage_walls_s": walls,
+            "contigs_as_phase8": same}
 
 
 def ont_phase(work, dev, fq):
@@ -1527,6 +1670,7 @@ def ont_phase(work, dev, fq):
     from metamdbg_tpu_torch.correction import mapper
     from metamdbg_tpu_torch.kernels import chain as kchain
     from metamdbg_tpu_torch.kernels import chain_dp as k4
+    from metamdbg_tpu_torch.kernels import count as kcount
     from metamdbg_tpu_torch.kernels import sketch as ksketch
     from metamdbg_tpu_torch.kernels import window_hash as kw
     from metamdbg_tpu_torch.sketch import batch
@@ -1554,7 +1698,8 @@ def ont_phase(work, dev, fq):
     mapper._join = record_join
     os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
     kernels = {"sketch_kernel": ksketch, "window_hash_kernel": kw,
-               "chain_kernel": kchain, "chain_dp_kernel": k4}
+               "chain_kernel": kchain, "chain_dp_kernel": k4,
+               "row_count_k2": kcount}
     for k in kernels.values():
         k.reset_counts()
     batch.tile_batches = 0
@@ -1633,10 +1778,11 @@ def ont_phase(work, dev, fq):
     return out, launches["chain_dp_kernel"], k4_main, joins[0]
 
 
-def correction_reference_start(work, fq):
-    ref = os.path.join(work, "jax_correction")
+def correction_reference_start(work, fq, tag="correction", env=None):
+    ref = os.path.join(work, f"jax_{tag}")
     os.makedirs(ref)
-    return ref, _jax_reference(work, "correction", fq, ref)
+    return ref, _jax_reference(work, "correction", fq, ref, tag=tag,
+                               env=env)
 
 
 def correction_reference_phase(ref, job, out):
@@ -1659,11 +1805,12 @@ def correction_reference_phase(ref, job, out):
     print(f"correction reference: checksum {want} equal")
 
 
-def _jax_reference(work, phase, *args, tag=None):
-    """Starts tests/jax_reference.py PHASE ARGS; its output goes to files
-    in `work` named after `tag` (default PHASE). Returns (process, stdout
-    path, stderr path, start time)."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+def _jax_reference(work, phase, *args, tag=None, env=None):
+    """Starts tests/jax_reference.py PHASE ARGS, with `env` added to the
+    environment; its output goes to files in `work` named after `tag`
+    (default PHASE). Returns (process, stdout path, stderr path, start
+    time)."""
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     paths = [os.path.join(work, f"jax_{tag or phase}.{s}")
              for s in ("out", "err")]
     with open(paths[0], "w") as out, open(paths[1], "w") as err:
@@ -2260,7 +2407,9 @@ def main():
         jobs += [rs_job, graph_job, bs_job, hifi_gfa_job]
         ont_fq = reads_wait(ont_job, "ont")
         corr_ref, corr_job = correction_reference_start(work, ont_fq)
-        jobs.append(corr_job)
+        bcorr_ref, bcorr_job = correction_reference_start(
+            work, ont_fq, "correction_bounded", BOUND_ENV)
+        jobs += [corr_job, bcorr_job]
         hifi_gfa = gfa_map_phase("hifi", dev, out, hifi_k, hifi_refs)
         ont_out, k4_launches, k4_main, join_inputs = ont_phase(work, dev,
                                                                ont_fq)
@@ -2283,6 +2432,8 @@ def main():
                             ont_gfa)
         two_ranks = sharded_phase(ranks, ont_out, dev)
         threads = threads_phase(work, dev, fq, out, digests, e2e_run)
+        bounded_ont = bounded_ont_phase(work, dev, ont_fq, ont_out,
+                                        bcorr_ref, bcorr_job)
     finally:
         for proc, *_ in jobs:
             if proc.poll() is None:
@@ -2301,7 +2452,7 @@ def main():
                 for tag, r in (("hifi", hifi_gfa), ("ont", ont_gfa))}
         return {**runs, "max_abs_err": max(hifi_gfa[3], ont_gfa[3])}
 
-    print(json.dumps({"threads": threads}))
+    print(json.dumps({"threads": threads, "bounded_ont": bounded_ont}))
     print(json.dumps({"sharded": {"two_ranks_gloo_one_card": two_ranks,
                                   "one_rank_nccl": nccl}}))
     print(json.dumps({"kernels": [

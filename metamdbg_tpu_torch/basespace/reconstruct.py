@@ -11,9 +11,10 @@
 4. dereplicate (derep.py, ContigDerep @ identity 0.9) and trim
    (ContigTrimmer) -> contigs.fasta.gz + contig_data_final.bin.
 
-The port of metamdbg_tpu/basespace/reconstruct.py:run_to_basespace, with
-the JAX package's defaults (two polishing passes, then the refinement
-pass) and no knobs. The chain DP of step 1 runs on kernel K3 and every
+The port of metamdbg_tpu/basespace/reconstruct.py:run_to_basespace: two
+polishing passes, then the refinement pass, unless
+METAMDBG_TPU_POLISH_PASSES or METAMDBG_TPU_POLISH_REFINE=0 say otherwise
+(as in the JAX package). The chain DP of step 1 runs on kernel K3 and every
 sketch on kernel K1, on `device`; the native engines run on `n_threads`
 threads, and nothing forks. `reconstruct_unpolished` makes the `gfa`
 subcommand's drafts.
@@ -34,8 +35,6 @@ from . import tiling
 from .contig_mapper import map_reads_to_contigs
 
 log = logging.getLogger("metamdbg_tpu_torch")
-
-POLISH_PASSES = 2
 
 
 def reconstruct_unpolished(minimizers, is_circular, alignments, read_seqs,
@@ -169,17 +168,20 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
         # indel-dense (ONT) consensus sometimes needs one more local
         # iteration to converge; re-polishing only the active windows costs
         # a remap plus a handful of window POAs.
+        # METAMDBG_TPU_POLISH_PASSES / _POLISH_REFINE=0 override.
+        n_passes = int(os.environ.get("METAMDBG_TPU_POLISH_PASSES", "2"))
+        refine = os.environ.get("METAMDBG_TPU_POLISH_REFINE", "1") != "0"
         sketches = dict(tiler._sketches)
         c1, h1 = partition_contigs, partition_headers
         cov1: dict = {}
         changed: dict = {}
-        for p in range(POLISH_PASSES):
+        for p in range(max(n_passes, 1)):
             c1, h1, cov1, _, changed = polisher_mod.polish_pass(
                 c1, h1, partition_reads, min_contig_length,
-                min_contig_coverage, final_headers=(p == POLISH_PASSES - 1),
+                min_contig_coverage, final_headers=(p == n_passes - 1),
                 device=device, n_threads=n_threads, read_sketches=sketches,
                 group=group)
-        if changed:
+        if refine and changed:
             margin = polisher_mod.WINDOW_LEN
             if params.data_type == 1:
                 # ONT: indel fixes shift every downstream window's grid

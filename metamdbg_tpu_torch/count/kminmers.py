@@ -184,14 +184,18 @@ def _iter_read_chunks(reads, k: int, budget_rows: int):
 def _count_kminmers_bounded(reads, k, device, min_abundance,
                             max_table_bytes):
     budget_rows = max(1, max_table_bytes // (k * 8) // 4)
-    logging.getLogger("metamdbg_tpu_torch").info(
+    log = logging.getLogger("metamdbg_tpu_torch")
+    log.info(
         "bounded k-min-mer counting: table budget %.2f GB (%d rows/chunk)",
         max_table_bytes / (1 << 30), budget_rows)
     uniq, counts = _empty_rows(k, device), _i64(0, device)
+    n_chunks = 0
     for chunk in _iter_read_chunks(reads, k, budget_rows):
         rows, _, _, _ = batch_extract_kminmers(chunk, k, device)
         u, c = count_unique_rows(rows)
         uniq, counts = _merge_counted(uniq, counts, u, c)
+        n_chunks += 1
+    log.info("bounded k-min-mer counting: %d chunks", n_chunks)
 
     solid_rows, solid_counts = _solid(uniq, counts, min_abundance)
     rescued_rows = _empty_rows(k, device)

@@ -11,12 +11,19 @@ int64 sign bit, so its sign bit is flipped before the sort, which makes the
 signed order of the keys their unsigned order.
 
 Rows are int64 tensors holding u32 values (CPU torch has no unsigned
-compares).
+compares). `launches` counts the calls of count_unique_rows on the card
+(each a few sorts, gathers and a scan); the CPU counts nothing.
 """
 
 import torch
 
 SIGN = -(1 << 63)
+launches = 0
+
+
+def reset_counts():
+    global launches
+    launches = 0
 
 
 def sort_rows_lex(rows: torch.Tensor) -> torch.Tensor:
@@ -46,6 +53,8 @@ def row_heads(s: torch.Tensor) -> torch.Tensor:
 def count_unique_rows(rows: torch.Tensor):
     """Group identical rows: (unique rows in lexicographic order, int64
     counts)."""
+    global launches
+    launches += rows.device.type == "cuda"
     n = rows.shape[0]
     if n == 0:
         return rows, torch.zeros(0, dtype=torch.int64, device=rows.device)

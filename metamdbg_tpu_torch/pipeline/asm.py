@@ -15,13 +15,13 @@ repeats) and toBasespace.
 Observability: `metaMDBG.log` next to the output, per-stage wall-clock and
 the process's own peak RSS (`peak_rss_gb`) in tmp/memoryTrack.txt and
 tmp/perf.txt, and tmp/device.json, rewritten after every stage: the
-device, the route of each stage
-("port:<device>"), and for each kernel (sketch, window hash, chain, chain
-DP) its launches in all and per stage (a stage that launched a kernel no
-time has no entry for it); the sketch kernel's also counts its overflow
-relaunches and the tile batches; and the group of ranks: rank, world size,
-transport, and for each stage that ran sharded what each sharded function
-did there (parallel/__init__.py's counters).
+device, the route of each stage ("port:<device>"), and for each kernel
+(sketch, window hash, chain, chain DP) its launches in all and per stage
+(a stage that launched a kernel no time has no entry for it), and K2's
+row counts on the card likewise; the sketch kernel's also counts its
+overflow relaunches and the tile batches; and the group of ranks: rank,
+world size, transport, and for each stage that ran sharded what each
+sharded function did there (parallel/__init__.py's counters).
 
 Run as N ranks (METAMDBG_TPU_DISTRIBUTED and the variables of
 parallel/__init__.py, an --out-dir per rank), `run` starts the group
@@ -50,6 +50,7 @@ from ..graph import contigs, multiplex, stage
 from ..io import native, records
 from ..kernels import chain as kchain
 from ..kernels import chain_dp as kchain_dp
+from ..kernels import count as kcount
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
@@ -165,6 +166,7 @@ class Pipeline:
         self.sketch_launches: dict = {}
         self.chain_launches: dict = {}
         self.chain_dp_launches: dict = {}
+        self.row_count_launches: dict = {}
         self.sharded: dict = {}
         self.group = None
         self.reads_cache = multiplex.ReadsCache()
@@ -184,7 +186,8 @@ class Pipeline:
         kernels = ((self.sketch_launches, ksketch),
                    (self.window_hash_launches, window_hash),
                    (self.chain_launches, kchain),
-                   (self.chain_dp_launches, kchain_dp))
+                   (self.chain_dp_launches, kchain_dp),
+                   (self.row_count_launches, kcount))
         before = [k.launches for _, k in kernels]
         before_sharded = {n: dict(c) for n, c in parallel.activity.items()}
         with threadmap.stage_pool(self.n_threads):
@@ -228,6 +231,9 @@ class Pipeline:
                "chain_dp_kernel": {
                    "launches": kchain_dp.launches,
                    "by_stage": self.chain_dp_launches},
+               "row_count_k2": {
+                   "launches": kcount.launches,
+                   "by_stage": self.row_count_launches},
                "distributed": {**parallel.describe(),
                                "sharded": self.sharded}}
         with open(os.path.join(self.tmp_dir, "device.json"), "w") as f:

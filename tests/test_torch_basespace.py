@@ -260,6 +260,43 @@ def test_run_to_basespace_several_partitions(hifi, tmp_path, monkeypatch):
     _assert_same_outputs(jtmp, jcontigs, tmp, out)
 
 
+@pytest.mark.parametrize("env", [{"METAMDBG_TPU_POLISH_PASSES": "1"},
+                                 {"METAMDBG_TPU_POLISH_PASSES": "3"},
+                                 {"METAMDBG_TPU_POLISH_REFINE": "0"}],
+                         ids=["passes1", "passes3", "no_refine"])
+def test_run_to_basespace_polish_env(hifi, tmp_path, monkeypatch, caplog,
+                                     env):
+    """METAMDBG_TPU_POLISH_PASSES and METAMDBG_TPU_POLISH_REFINE=0 set the
+    polish passes as in the JAX package (metamdbg_tpu/basespace/
+    reconstruct.py:160-162): the contigs are the JAX package's under the
+    same variable."""
+    from metamdbg_tpu.basespace import reconstruct as jreconstruct
+    from metamdbg_tpu.io import records as jrecords
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    fq, jout = hifi
+    jtmp = _fresh_tmp(os.path.join(jout, "tmp"), str(tmp_path / "jax"))
+    jcontigs = os.path.join(jtmp, "contigs.fasta.gz")
+    jreconstruct.run_to_basespace(
+        jtmp, [fq], jcontigs,
+        jrecords.Parameters.load(os.path.join(jtmp, "parameters.gz")),
+        MIN_LEN, MIN_COV, None, n_threads=1)
+    with caplog.at_level(logging.INFO, logger="metamdbg_tpu_torch"):
+        tmp, out = _port_to_basespace(fq, os.path.join(jout, "tmp"),
+                                      str(tmp_path / "port"))
+    port_log = [r.getMessage() for r in caplog.records
+                if r.name == "metamdbg_tpu_torch"]
+    passes = int(env.get("METAMDBG_TPU_POLISH_PASSES", "2"))
+    partitions = sum(" tiling: " in m for m in port_log)
+    refined = sum("Polish refinement" in m for m in port_log)
+    assert sum("polish pass timing" in m for m in port_log) == \
+        passes * partitions + refined
+    if "METAMDBG_TPU_POLISH_REFINE" in env:
+        assert refined == 0
+    _assert_same_outputs(jtmp, jcontigs, tmp, out)
+
+
 def _ont_reads(path):
     """The tests/test_e2e.py:55 ONT input."""
     genome = datagen.random_genome(70_000, seed=31)
