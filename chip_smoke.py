@@ -31,9 +31,21 @@ Phases, each of which exits non-zero when it fails:
    w in {4, 5, 6, 7, 16, 61, 123}; row slices of a (2^20, 24) table as
    hash_rows makes them; every window in a shuffled order; per-window
    widths 1..16, and 4,000 whole unitigs back to back of up to 20,000
-   words; normalize on and off: bit-identical (tolerance 0). Prints the
-   kernel's times on each layout, and the plain and host-per-call times at
-   w = 16;
+   words; normalize on and off: bit-identical (tolerance 0). Then KW's
+   segmented mode (every window of each sequence of a stream, segments of
+   several widths in one launch) on ~105k reads-like sequences of 0-80
+   minimizers (KW_STREAM words kept on the card, a quarter of them past
+   2^31, palindromic windows planted) and host sequences uploaded with
+   the request: one request of segments at every width above, normalize
+   on and off, an empty segment and one whose sequences are all shorter
+   than its width, and one laid out as a ladder pass (refined nodes,
+   reads and contigs at k-1 and k): one launch each, bit-identical to the
+   plain version and to the explicit-starts mode on the same windows.
+   Prints the kernel's times on each layout with its bound (the stream at
+   4 bytes a word for both modes), the segmented and explicit modes'
+   times on the reads' windows at w = 16, 40 and 61, and the plain and
+   host-per-request times at w = 16 beside the earlier host path (stream
+   built and uploaded, starts made, explicit launch);
 3c. row counting (K2, torch ops): kernels/count.py on the card against the
    same function on CPU tensors, on a (2^20, 5) table with repeats: the
    unique rows and counts must be identical. Prints its time (CUDA events
@@ -72,9 +84,12 @@ Phases, each of which exits non-zero when it fails:
    prints a histogram of the KW launches by size, then launches again,
    against the plain version and timed, every sketch launch, the KW
    launches that hold 90% of the run's windows x width and every KW
-   launch with per-window widths, and the K3 call (held bit-identical to
-   the plain version, with the host ms per chain_contig call): the main
-   path's own launches, with the sum of their times and of their bounds.
+   launch with per-window widths (segmented launches as they were made),
+   and the K3 call (held bit-identical to the plain version, with the
+   host ms per chain_contig call): the main path's own launches, with the
+   sum of their times and of their bounds. Prints KW's launches per call
+   site (tmp/device.json), and fails unless the multiplex passes' counts
+   made at most one launch a pass.
 8. ONT end to end (run after the references of phases 5-7 and the one of
    phase 9 have started, beside them): the 3-genome ONT metagenome of
    tests/test_quality_harness.py:103-112 (~86 Mbp) through `asm --in-ont
@@ -204,14 +219,18 @@ The line before the last four is a JSON object with phase 4t's and phase
 one with phases 11 and 11b's results ("sharded"). The line before the
 last two is a JSON object describing each kernel: its launches in phase
 4 (K4's in phase 8), its largest difference from the plain version, its time and the plain version's (phase 3 at density
-0.005, 3b at w = 16, 3d, 3e), `bound_ms`, the least time the card could
+0.005, 3b's segmented mode on the reads at w = 16, 3d, 3e), `bound_ms`,
+the least time the card could
 take for the same work on those inputs (the larger of bytes over the
 memory rate and operations over the peak rates), with what bounds it, and
 the main path's own launches timed again: `main_path_ms` and
 `main_path_bound_ms` summed over `main_path_launches_timed` of them; the
 sketch and window hash kernels' entries add `gfa_map_launches`, their
 launches in each `gfa` and `map` run of phases 4b and 8b and the largest
-difference from the plain version on their replay. The line before the
+difference from the plain version on their replay; the window hash
+kernel's adds its phase 4 launches by call site and the explicit-starts
+mode's time and bound on the same windows and on the dense stream at
+w = 16. The line before the
 last is the card's nvidia-smi name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -244,6 +263,9 @@ KW_STREAM, KW_WIDTHS, KW_TIMED = 4_194_304, (4, 5, 6, 7, 16, 61, 123), 16
 # table, and whole unitigs back to back (per-window widths up to 20,000,
 # 24 distinct ones)
 KW_ROWS, KW_ROW_K, KW_UNITIGS, KW_UNITIG_MAX = 1 << 20, 24, 4_000, 20_000
+# phase 3b's segmented mode: reads of 0..KW_READ_MAX minimizers (~105k of
+# them in KW_STREAM words, as a 1.1 Gbp HiFi run's 110,526 reads hold 4.3M)
+KW_READ_MAX = 80
 # kernel times: CUDA events around this many back-to-back launches on
 # outputs allocated once, divided by the count; the median of 3 such runs
 TIME_REPS, TIME_TRIALS = 20, 3
@@ -586,10 +608,13 @@ def _kw_stream(n, seed):
 
 
 def kw_launch_bound(cat_numel, starts, w, normalize, one_pipe=False):
-    """bound() of one KW launch: the stream words its windows touch (at
-    most the whole stream), the starts (and widths) in, two int64 hash
-    words out per window; kw_ops per window. one_pipe: the earlier count, the
-    whole stream and 150 operations per window at every width."""
+    """bound() of one KW launch with explicit starts: the stream words its
+    windows touch (at most the whole stream) counted as u32 words, 4 bytes
+    each, as the segmented mode reads them, so that the bound reads the
+    same work whichever kernel does it; the starts (and widths) in, two
+    int64 hash words out per window; kw_ops per window. one_pipe: the
+    earlier count, the whole stream at 8 bytes a word and 150 operations
+    per window at every width."""
     n = starts.numel()
     if one_pipe:
         return bound_one_pipe(cat_numel * 8 + n * 8 + n * 16,
@@ -605,8 +630,31 @@ def kw_launch_bound(cat_numel, starts, w, normalize, one_pipe=False):
         mul = 22 * nb + 8 * halves + 16 * n
         either = 4 * nb + 8 * n
         other = 12 * nb + 4 * halves + n * (16 + 2 * normalize)
-    return bound(min(cat_numel, words) * 8 + n * 8 + extra + n * 16, other,
+    return bound(min(cat_numel, words) * 4 + n * 8 + extra + n * 16, other,
                  mul_ops=mul, either_ops=either)
+
+
+def kw_segments_bound(segs):
+    """bound() of one segmented KW launch: every word of each sequence that
+    has a window (4 bytes), those sequences' two table entries (first
+    window, start word), the warps' first sequences and the descriptors
+    in, two int64 hash words out per window; kw_ops per window. No start
+    array: the mode has none."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    nbytes = mul = either = other = 0
+    for s in segs:
+        if not s.n_win:
+            continue
+        # a listed sequence of n_k windows holds n_k + w - 1 words
+        words = s.n_win + (s.w - 1) * s.live_base.numel()
+        nbytes += (4 * words + 16 * s.live_base.numel() + 8
+                   + 8 * s.warp_seq.numel() + 8 * kw._SEG_WORDS
+                   + 16 * s.n_win)
+        m, e, o = kw_ops(s.w, s.normalize)
+        mul, either, other = (mul + m * s.n_win, either + e * s.n_win,
+                              other + o * s.n_win)
+    return bound(nbytes, other, mul_ops=mul, either_ops=either)
 
 
 def _kw_check(what, cat, starts, w, normalize):
@@ -713,6 +761,157 @@ def kw_phase(dev):
              useq, widths, False)
     print("kernel window_hash: dense starts at every width, row slices, "
           "shuffled starts and per-window widths bit-identical to plain")
+    result["err"] = err
+    return result
+
+
+def _kw_segments_check(what, segs, n_total):
+    """One segmented KW launch against its plain version: bit-identical,
+    or fail. Returns (the kernel's output, the max abs difference (0))."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    got = kw._launch_segments(segs, n_total)
+    torch.cuda.synchronize()
+    want = kw.hash_segments_reference(segs, n_total)
+    diff = int((got != want).sum())
+    err = int((got - want).abs().max()) if n_total else 0
+    if diff or err:
+        fail(f"window hash segments {what}: {diff} hash words differ from "
+             f"the plain version")
+    return got, err
+
+
+def _kw_segments_timer(segs, n_total):
+    """A launch of the segmented kernel on `segs` that does not wait, into
+    an output and a descriptor table made once."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    dev = segs[0].words.device
+    table = torch.from_numpy(kw._descriptors(segs)).to(dev)
+    live = sum(1 for s in segs if s.n_win)
+    tiles = kw._n_tiles(segs)
+    out = torch.empty(2 * n_total, dtype=torch.int64, device=dev)
+    return lambda: kw._enqueue_segments(table, live, tiles, out)
+
+
+def _kw_reads(n_words, seed):
+    """Reads-like host sequences of u32 minimizers, KW_READ_MAX words at
+    most (empty ones and ones shorter than every width among them), cut
+    from phase 3b's stream with a quarter of the words past 2^31 (the
+    int32 carriage's sign bit) and palindromic windows of every tested
+    width at the starts of some."""
+    rng = np.random.default_rng(seed)
+    cat = _kw_stream(n_words, seed).astype(np.uint32)
+    cat[rng.random(n_words) < 0.25] |= np.uint32(1 << 31)
+    lens = rng.integers(0, KW_READ_MAX + 1, size=2 * n_words // KW_READ_MAX)
+    lens = lens[np.cumsum(lens) <= n_words]
+    seqs = np.split(cat[:lens.sum()], np.cumsum(lens)[:-1])
+    for i, s in enumerate(seqs[::7]):
+        w = KW_WIDTHS[i % len(KW_WIDTHS)]
+        if s.shape[0] >= w:
+            s[w - w // 2:w] = s[:w // 2][::-1].copy()
+    return seqs
+
+
+def kw_segments_phase(dev):
+    """KW's segmented mode against its plain version on the card, on a
+    reads-like stream of KW_STREAM words kept on the card and host
+    sequences uploaded with the request: one request of segments at every
+    width of KW_WIDTHS, normalize on and off, an empty segment and one
+    whose sequences are all shorter than its width, the ladder's pass
+    layout (refined nodes, reads and contigs at k-1 and k), and the same
+    windows through the explicit-starts mode (int64 stream, one start per
+    window): bit-identical (tolerance 0). Times the segmented mode at
+    w = KW_TIMED, 40 and 61 beside the explicit mode on the same windows,
+    the plain version and the host clock per request; returns a dict of
+    max_abs_err, ms, plain_ms, host_ms, bound and the explicit mode's ms
+    and bound at w = KW_TIMED."""
+    from metamdbg_tpu_torch.count import kminmers
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    reads_host = _kw_reads(KW_STREAM, seed=310)
+    reads = kw.Stream(reads_host).to(dev)
+    rng = np.random.default_rng(311)
+    short = [s[:int(rng.integers(0, KW_TIMED))] for s in reads_host[:2000]]
+    contigs = [np.resize(s, int(rng.integers(KW_TIMED, 401)))
+               for s in reads_host[2000:6000] if s.shape[0]]
+    host = kw.Stream(short + contigs)
+    n_short = len(short)
+    requests = {
+        "every width": [kw.Segment(reads, w, i % 2 == 0)
+                        for i, w in enumerate(KW_WIDTHS)]
+        + [kw.Segment(host, KW_TIMED, True, 0, n_short),
+           kw.Segment(reads, 5, True, 7, 7),
+           kw.Segment(host, 123, True, n_short),
+           kw.Segment(host, 4, False)],
+        "a ladder pass at k=16": [
+            kw.Segment(host, 15, True, n_short, n_short + 300),
+            kw.Segment(reads, 15), kw.Segment(host, 15, True, n_short),
+            kw.Segment(reads, 16), kw.Segment(host, 16, True, n_short)]}
+    err = 0
+    for what, segments in requests.items():
+        segs, n_total, table = kw._prepare(segments, dev)
+        before = kw.launches
+        got = kw.hash_segments(segments, dev)
+        if kw.launches != before + 1:
+            fail(f"window hash segments {what}: {kw.launches - before} "
+                 f"launches for one request")
+        out, e = _kw_segments_check(what, segs, n_total)
+        err = max(err, e)
+        if not (torch.equal(torch.cat([g[0] for g in got]), out[:n_total])
+                and torch.equal(torch.cat([g[1] for g in got]),
+                                out[n_total:])):
+            fail(f"window hash segments {what}: hash_segments differs from "
+                 f"the launch on its own request")
+        # the same windows through the explicit-starts mode
+        for s, (h1, h2, _) in zip(segs, got):
+            if not s.n_win:
+                continue
+            cat = s.words.to(torch.int64) & 0xFFFFFFFF
+            e1, e2 = kw.hash_windows(cat, kw.segment_starts(s), s.w,
+                                     s.normalize)
+            if not (torch.equal(e1, h1) and torch.equal(e2, h2)):
+                fail(f"window hash segments {what} w={s.w}: the explicit "
+                     f"mode differs")
+        print(f"kernel window_hash segments {what}: {len(segs)} segments, "
+              f"{n_total} windows, "
+              f"{sum(1 for s in segs if not s.n_win)} without windows; one "
+              f"launch, bit-identical to plain and to the explicit mode")
+    result = None
+    for w in (KW_TIMED, 40, 61):  # reads hold up to KW_READ_MAX words
+        segs, n_total, _ = kw._prepare([kw.Segment(reads, w)], dev)
+        ms = _time_ms(_kw_segments_timer(segs, n_total))
+        b = kw_segments_bound(segs)
+        cat = segs[0].words.to(torch.int64) & 0xFFFFFFFF
+        e_ms, e_b = _kw_time(f"reads' windows w={w} normalize, explicit "
+                             f"starts", cat, kw.segment_starts(segs[0]), w,
+                             True)
+        print(f"kernel window_hash segments reads w={w} normalize: "
+              f"{len(reads)} sequences, {reads.words.numel()} words, "
+              f"{n_total} windows: kernel {ms:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]}), {b[0] / ms:.1%} of the bound; explicit starts "
+              f"{e_ms:.4f} ms (bound {e_b[0]:.4f} ms)")
+        if w == KW_TIMED:
+            p_ms = _time_ms(lambda: kw.hash_segments_reference(
+                segs, n_total), reps=2, graph=False)
+            host_ms = _host_ms(lambda: kw.hash_segments(
+                [kw.Segment(reads, w)], dev))
+            def earlier():
+                """The host stream, starts and explicit launch of the
+                earlier flat_window_hashes."""
+                cat, lens = kminmers.stream(reads_host, dev)
+                starts, _ = kminmers.window_starts(lens, w)
+                return kw.hash_windows(cat, starts, w, True)
+
+            old_ms = _host_ms(earlier, reps=3)
+            print(f"kernel window_hash segments reads w={w}: plain torch "
+                  f"{p_ms:.4f} ms; hash_segments {host_ms:.4f} ms host "
+                  f"clock per request on the resident stream; the host "
+                  f"stream, starts and explicit launch of the earlier "
+                  f"flat_window_hashes {old_ms:.4f} ms")
+            result = dict(ms=ms, plain_ms=p_ms, host_ms=host_ms, bound=b,
+                          explicit_ms=e_ms, explicit_bound=e_b,
+                          earlier_host_ms=old_ms)
     result["err"] = err
     return result
 
@@ -1173,10 +1372,52 @@ class LaunchRecorder:
         self.module._launch = self.real
 
 
-def _kw_pattern(starts, w):
-    """How a KW launch's starts lie: per-window widths, dense (most
-    neighbours one word apart: a stream's every window), disjoint rows (no
-    two windows overlap) or other."""
+class KWRecorder:
+    """LaunchRecorder for KW's two wrappers: `_launch` (explicit starts,
+    inputs copied) and `_launch_segments` (the segmented mode), in launch
+    order, each call ((mode, args), host seconds). A segmented launch keeps
+    its Seg tuples as they are, not copies: nothing writes their tensors
+    after the launch (a stream's words and offsets, a request's copy), and
+    holding them keeps their memory from reuse."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+        self.real = module._launch, module._launch_segments
+
+    def __enter__(self):
+        real_launch, real_segments = self.real
+
+        def launch(*args):
+            t0 = time.perf_counter()
+            out = real_launch(*args)
+            host_s = time.perf_counter() - t0
+            self.calls.append((("starts", tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args)), host_s))
+            return out
+
+        def segments(segs, n_total, table=None):
+            t0 = time.perf_counter()
+            out = real_segments(segs, n_total, table)
+            self.calls.append((("segments", (list(segs), n_total)),
+                               time.perf_counter() - t0))
+            return out
+
+        self.module._launch, self.module._launch_segments = launch, segments
+        return self
+
+    def __exit__(self, *exc):
+        self.module._launch, self.module._launch_segments = self.real
+
+
+def _kw_pattern(call):
+    """How a KW launch names its windows: segmented (how many segments),
+    per-window widths, dense (most neighbours one word apart: a stream's
+    every window), disjoint rows (no two windows overlap) or other."""
+    mode, args = call
+    if mode == "segments":
+        return f"segmented, {sum(1 for s in args[0] if s.n_win)} segments"
+    _, starts, w, _ = args
     if not isinstance(w, int):
         return "per-window widths"
     if starts.numel() < 2:
@@ -1185,6 +1426,50 @@ def _kw_pattern(starts, w):
     if float((d == 1).float().mean()) >= 0.5:
         return "dense"
     return "disjoint rows" if bool((d >= w).all()) else "other"
+
+
+def kw_call_size(call):
+    """(windows, window words) of a recorded KW launch."""
+    mode, args = call
+    if mode == "segments":
+        segs, n_total = args
+        return n_total, sum(s.n_win * s.w for s in segs)
+    _, starts, w, _ = args
+    n = starts.numel()
+    return n, n * w if isinstance(w, int) else int(w.sum())
+
+
+def kw_call_check(what, call):
+    """A recorded KW launch again, against its plain version: bit-identical
+    or fail; returns the max abs difference (0)."""
+    mode, args = call
+    if mode == "segments":
+        return _kw_segments_check(what, *args)[1]
+    return _kw_check(what, *args)
+
+
+def kw_call_bound(call):
+    """bound() of a recorded KW launch."""
+    mode, args = call
+    if mode == "segments":
+        return kw_segments_bound(args[0])
+    cat, starts, w, normalize = args
+    return kw_launch_bound(cat.numel(), starts, w, normalize)
+
+
+def kw_call_timer(call):
+    """(a launch of a recorded KW call that does not wait, into outputs
+    made once; its bound)."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    mode, args = call
+    if mode == "segments":
+        return _kw_segments_timer(*args), kw_call_bound(call)
+    cat, starts, w, normalize = args
+    out = torch.empty(2 * starts.numel() + 1, dtype=torch.int64,
+                      device=cat.device)
+    return ((lambda: kw._enqueue(cat, starts, w, normalize, out)),
+            kw_call_bound(call))
 
 
 KW_BINS = (1, 16, 256, 4096, 65536, 1 << 20)
@@ -1196,16 +1481,12 @@ def kw_replay_set(calls):
     per-window-width launch. Returns (their indexes in launch order, their
     share of the window words, per launch (windows, window words, host
     seconds))."""
-    info = []
-    for (cat, starts, w, normalize), host_s in calls:
-        n = starts.numel()
-        info.append((n, n * w if isinstance(w, int) else int(w.sum()),
-                     host_s))
+    info = [(*kw_call_size(call), host_s) for call, host_s in calls]
     total_w = sum(x[1] for x in info)
     keep, acc = [], 0
     for i in sorted(range(len(calls)), key=lambda i: -info[i][1]):
         if acc < KW_REPLAY_SHARE * total_w or \
-                not isinstance(calls[i][0][2], int):
+                _kw_pattern(calls[i][0]) == "per-window widths":
             keep.append(i)
             acc += info[i][1]
     return sorted(keep), acc / total_w, info
@@ -1215,8 +1496,6 @@ def kw_replay(calls):
     """Phase 4's KW launches: a histogram by size; then kw_replay_set's
     launches, checked against the plain version and timed again. Returns
     (sum of ms, sum of bound ms, launches timed)."""
-    from metamdbg_tpu_torch.kernels import window_hash as kw
-
     keep, share, info = kw_replay_set(calls)
     total_w = sum(x[1] for x in info)
     print(f"e2e kw launches: {len(calls)}, {sum(x[0] for x in info)} "
@@ -1234,20 +1513,15 @@ def kw_replay(calls):
     by_pattern = {}
     sums = [0.0, 0.0]
     for i in keep:
-        cat, starts, w, normalize = calls[i][0]
-        pattern = _kw_pattern(starts, w)
-        _kw_check(f"main-path launch {i}", cat, starts, w, normalize)
-        n = starts.numel()
-        out = torch.empty(2 * n + 1, dtype=torch.int64, device=cat.device)
-        ms = _time_ms(lambda: kw._enqueue(cat, starts, w, normalize, out))
-        b_ms, b_by = kw_launch_bound(cat.numel(), starts, w, normalize)
-        width = (f"w={w}" if isinstance(w, int) else
-                 f"w={int(w.min())}..{int(w.max())}")
+        call = calls[i][0]
+        pattern = _kw_pattern(call)
+        kw_call_check(f"main-path launch {i}", call)
+        fn, (b_ms, b_by) = kw_call_timer(call)
+        ms = _time_ms(fn)
         if pattern == "per-window widths" or i in smallest:
-            print(f"e2e kw replay launch {i}: {pattern}, {n} windows, "
-                  f"{width}, normalize={normalize}: {ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
-        p = by_pattern.setdefault(pattern, [0, 0.0, 0.0, 0])
+            print(f"e2e kw replay launch {i}: {pattern}, {info[i][0]} "
+                  f"windows: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        p = by_pattern.setdefault(pattern.split(",")[0], [0, 0.0, 0.0, 0])
         p[0] += 1
         p[1] += ms
         p[2] += b_ms
@@ -1260,21 +1534,12 @@ def kw_replay(calls):
     # the small launches: what one costs the card, against its host call
     small = [i for i in range(len(calls)) if info[i][0] < KW_BINS[2]][:20]
     if small:
-        dev_ms, host_ms = [], []
-        for i in small:
-            cat, starts, w, normalize = calls[i][0]
-            out = torch.empty(2 * starts.numel() + 1, dtype=torch.int64,
-                              device=cat.device)
-            dev_ms.append(_time_ms(
-                lambda: kw._enqueue(cat, starts, w, normalize, out)))
-            host_ms.append(_host_ms(
-                lambda: kw.hash_windows(cat, starts, w, normalize)))
+        dev_ms = [_time_ms(kw_call_timer(calls[i][0])[0]) for i in small]
         print(f"e2e kw small launches (< {KW_BINS[2]} windows): "
               f"{len(small)} replayed, {statistics.mean(dev_ms):.4f} ms per "
-              f"launch back to back on the card; hash_windows "
-              f"{statistics.mean(host_ms):.4f} ms host clock per call; "
+              f"launch back to back on the card; "
               f"{statistics.mean(info[i][2] for i in small) * 1e3:.4f} ms "
-              f"in the run")
+              f"host clock per launch in the run")
     print(f"e2e kw replay: {len(keep)} of {len(calls)} launches "
           f"({share:.2%} of window words): kernel {sums[0]:.4f} ms, bound "
           f"{sums[1]:.4f} ms; all bit-identical to plain")
@@ -1362,7 +1627,7 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
     kcount.reset_counts()
     batch.tile_batches = 0
     try:
-        with LaunchRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
+        with KWRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
             t0 = time.perf_counter()
             rc = main(["asm", "--out-dir", out, "--in-hifi", fq, "--device",
                        dev.type, "--threads", "1"])
@@ -1420,12 +1685,24 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
                         ("chain_kernel", k3_launches)):
         if sum(by_kernel[name].values()) != total:
             fail(f"{name}: {total} launches, per stage {by_kernel[name]}")
+    kw_sites = prov["window_hash_kernel"]["by_site"]
+    print(f"e2e: window hash kernel launches per call site {kw_sites}")
+    if sum(kw_sites.values()) != kw_launches:
+        fail(f"window hash kernel: {kw_launches} launches, per call site "
+             f"{kw_sites}")
     if dev.type == "cuda":
         kw_passes = [by_kernel["window_hash_kernel"].get(n, 0)
                      for n in passes]
         if min(kw_passes) < 1:
             fail(f"window hash kernel: per stage "
                  f"{by_kernel['window_hash_kernel']}")
+        # the multiplex passes' counts: one launch each
+        count_launches = kw_sites.get("graph/multiplex.py:_hash_planes", 0)
+        if not 0 < count_launches <= len(passes) - 2:
+            fail(f"{count_launches} count launches in "
+                 f"{len(passes) - 2} multiplex passes")
+        print(f"e2e: the multiplex passes' counts made {count_launches} "
+              f"window hash launches in {len(passes) - 2} passes")
         for name in ("sketch_kernel", "chain_kernel"):
             if by_kernel[name].get("toBasespace", 0) < 1:
                 fail(f"{name} did not launch in toBasespace: "
@@ -1457,6 +1734,7 @@ def e2e_phase(work, dev, fq, genome_len=GENOME_LEN):
             fail(f"recorded {len(kw_rec.calls)} KW and {len(k1_rec.calls)} "
                  f"sketch launches, counted {kw_launches} and {launches}")
         main_path = {"window_hash": kw_replay(kw_rec.calls),
+                     "window_hash_sites": kw_sites,
                      "sketch_tiles": k1_replay(k1_rec.calls),
                      "chain_contig": (*k3_main, len(chain_calls))}
     else:
@@ -1967,7 +2245,7 @@ def gfa_map_phase(tag, dev, out, k, refs):
             ("map", ["map", out, str(k), "--references", *refs]))
     listing = io.StringIO()
     walls, launches = {}, {}
-    with LaunchRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
+    with KWRecorder(kw) as kw_rec, LaunchRecorder(ksketch) as k1_rec:
         for name, args in runs:
             for m in kernels.values():
                 m.reset_counts()
@@ -2011,9 +2289,8 @@ def gfa_map_phase(tag, dev, out, k, refs):
         for i, ((codes, l, density, cap), _) in enumerate(k1_rec.calls):
             _k1_check(f"{tag} gfa/map sketch launch {i}", codes, l, density,
                       cap)
-        for i, ((cat, starts, w, normalize), _) in enumerate(kw_rec.calls):
-            err = max(err, _kw_check(f"{tag} gfa/map launch {i}", cat,
-                                     starts, w, normalize))
+        for i, (call, _) in enumerate(kw_rec.calls):
+            err = max(err, kw_call_check(f"{tag} gfa/map launch {i}", call))
         print(f"{tag} gfa/map: {total[0]} sketch and {total[1]} window hash "
               f"launches again after the runs: bit-identical to plain")
     return listing.getvalue(), walls, launches, err
@@ -2392,6 +2669,7 @@ def main():
         build_phase()
         kern = kernel_phase(dev)
         kw_result = kw_phase(dev)
+        kw_segments = kw_segments_phase(dev)
         count_phase(dev)
         chain_result = chain_phase(dev)
         chain_dp_result = chain_dp_phase(dev)
@@ -2464,9 +2742,16 @@ def main():
         _kernel_line("window_hash", "metamdbg_tpu_torch/csrc/window_hash.cu",
                      "metamdbg_tpu/parallel/count_table.py:29 + "
                      "native/sketch.cpp:523", launches[1],
-                     (kw_result["err"], kw_result["ms"],
-                      kw_result["plain_ms"], kw_result["bound"]), kw_main,
-                     gfa_map_launches=gfa_map_launches("window_hash_kernel")),
+                     (max(kw_result["err"], kw_segments["err"]),
+                      kw_segments["ms"], kw_segments["plain_ms"],
+                      kw_segments["bound"]), kw_main,
+                     gfa_map_launches=gfa_map_launches("window_hash_kernel"),
+                     launches_by_site=main_path["window_hash_sites"],
+                     explicit_starts_ms=kw_segments["explicit_ms"],
+                     explicit_starts_bound_ms=kw_segments[
+                         "explicit_bound"][0],
+                     dense_explicit_ms=kw_result["ms"],
+                     dense_explicit_bound_ms=kw_result["bound"][0]),
         _kernel_line("chain_contig",
                      "metamdbg_tpu_torch/csrc/chain_contig.cu",
                      "metamdbg_tpu/kernels/chain_jax.py:131",

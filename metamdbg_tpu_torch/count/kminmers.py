@@ -67,11 +67,11 @@ def window_starts(lens: torch.Tensor, w: int):
 
 def flat_window_hashes(seqs, w: int, device):
     """hash128 of every normalized w-window of every host sequence, flat:
-    (h1, h2, window offsets per sequence), one KW launch."""
-    cat, lens = stream(seqs, device)
-    starts, offsets = window_starts(lens, w)
-    h1, h2 = window_hash.hash_windows(cat, starts, w, normalize=True)
-    return h1, h2, offsets
+    (h1, h2, window offsets per sequence), one KW launch in its segmented
+    mode: the offsets come from the host's lengths, and nothing waits for
+    the card."""
+    segment = window_hash.Segment(window_hash.Stream(seqs), w)
+    return window_hash.hash_segments([segment], device)[0]
 
 
 def batch_extract_kminmers(reads: list, k: int, device):

@@ -156,7 +156,9 @@ def _extract_unitigs(oriented: np.ndarray, nxt: np.ndarray, prv: np.ndarray,
             visited[x] = True
         add_sequence(spell(path))
 
-    # cycles: remaining unvisited nodes with nxt pointers
+    # cycles: remaining unvisited nodes with nxt pointers, spelled in one
+    # batch and added in the order they are found
+    found = []  # a spelled degenerate chain, or a cycle's node list
     for s in np.flatnonzero(~visited).tolist():
         if visited[s]:
             continue
@@ -167,32 +169,59 @@ def _extract_unitigs(oriented: np.ndarray, nxt: np.ndarray, prv: np.ndarray,
             cycle.append(x)
             visited[x] = True
             x = nxt[x]
-        if x != s:
-            add_sequence(spell(cycle))  # degenerate (hairpin chain)
-            continue
-        add_sequence(_canonical_cycle(oriented, cycle, k, device))
+        # x != s: degenerate (hairpin chain)
+        found.append(spell(cycle) if x != s else cycle)
+    canonical = iter(_canonical_cycles(
+        oriented, [c for c in found if isinstance(c, list)], k, device))
+    for c in found:
+        add_sequence(next(canonical) if isinstance(c, list) else c)
 
     return list(sequences.values())
 
 
-def _canonical_cycle(oriented: np.ndarray, cycle: list, k: int,
-                     device) -> np.ndarray:
-    """Rotate/orient a circular unitig per computeUnitigNode2
+def _canonical_cycles(oriented: np.ndarray, cycles: list, k: int,
+                      device) -> list:
+    """Rotate/orient each circular unitig per computeUnitigNode2
     (src/graph/CreateMdbg.hpp:2733-2795): anchor at the member k-min-mer with
     the smallest normalized hash128, oriented so the anchor reads in its
-    normalized form; spelled as anchor + subsequent last-minimizers."""
-    members = oriented[cycle]                      # (C, k) walk orientation
-    h1, h2, _ = flat_window_hashes(list(members), k, device)
-    best = int(sort_pairs(h1, h2)[0])
-    if _is_reversed(members[best]):
-        # the anchor reads reversed: walk the reversed orientation and find
-        # the anchor again (same normalized hash)
-        key = (int(h1[best]), int(h2[best]))
-        members = np.ascontiguousarray(members[::-1, ::-1])
-        g1, g2, _ = flat_window_hashes(list(members), k, device)
-        best = int(torch.nonzero((g1 == key[0]) & (g2 == key[1]))[0])
-    rolled = np.roll(members, -best, axis=0)
-    return np.concatenate([rolled[0], rolled[1:, -1]])
+    normalized form; spelled as anchor + subsequent last-minimizers. One KW
+    launch hashes every cycle's members, and a second the reversed walks of
+    the cycles whose anchor reads reversed."""
+    if not cycles:
+        return []
+    members = [oriented[c] for c in cycles]        # (C, k) walk orientation
+    h1, h2, _ = flat_window_hashes(
+        [row for m in members for row in m], k, device)
+    h1 = h1.cpu().numpy().view(np.uint64)
+    h2 = h2.cpu().numpy().view(np.uint64)
+    starts = np.concatenate([[0], np.cumsum([len(c) for c in cycles])])
+    best, flip = [], []
+    for i, m in enumerate(members):
+        lo, hi = starts[i], starts[i + 1]
+        # the smallest pair, the first of equal ones (a stable order)
+        b = int(np.lexsort((h2[lo:hi], h1[lo:hi]))[0])
+        best.append(b)
+        if _is_reversed(m[b]):
+            # the anchor reads reversed: walk the reversed orientation and
+            # find the anchor again (same normalized hash)
+            flip.append((i, h1[lo + b], h2[lo + b]))
+            members[i] = np.ascontiguousarray(m[::-1, ::-1])
+    if flip:
+        g1, g2, _ = flat_window_hashes(
+            [row for i, _, _ in flip for row in members[i]], k, device)
+        g1 = g1.cpu().numpy().view(np.uint64)
+        g2 = g2.cpu().numpy().view(np.uint64)
+        at = 0
+        for i, a1, a2 in flip:
+            n = members[i].shape[0]
+            best[i] = int(np.flatnonzero((g1[at:at + n] == a1)
+                                         & (g2[at:at + n] == a2))[0])
+            at += n
+    out = []
+    for m, b in zip(members, best):
+        rolled = np.roll(m, -b, axis=0)
+        out.append(np.concatenate([rolled[0], rolled[1:, -1]]))
+    return out
 
 
 def _deterministic_order(sequences: list, device) -> list:

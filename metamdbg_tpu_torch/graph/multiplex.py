@@ -8,9 +8,11 @@ hash goes through kernel KW (kernels/window_hash.py), and the refined
 previous-abundance overlay, the min-of-adjacent abundances, the
 first-occurrence dedup and every lookup are torch sorts, segment maxima
 and searches. The graph surgery from `_solve_edges` on stays host code,
-as in the JAX package. Its hashes are batched: each step hashes and looks
-up every k-window it may ask about in one launch, and memoizes the
-answers (`_km_abundances`).
+as in the JAX package. Its hashes are batched: the count makes one KW
+launch a pass, over the reads' stream kept on the device (`ReadsCache`)
+and the pass's host sequences; each later step hashes and looks up every
+k-window it may ask about in one launch, and memoizes the answers
+(`_km_abundances`).
 """
 
 import collections
@@ -26,6 +28,7 @@ from ..count.kminmers import PairTable, flat_window_hashes, pair_heads, \
     sort_pairs
 from ..count.refined import overlay_refined
 from ..io import records
+from ..kernels import window_hash
 from . import gio
 from .filter_graph import FilterGraph, FilterNode, rc
 
@@ -45,24 +48,36 @@ def first_occurrence_table(h1, h2, values) -> PairTable:
 
 class ReadsCache:
     """What the ~100 multiplex passes of one run share: the minimizer reads
-    of read_data_corrected.txt, parsed once per file identity, and their
-    window-hash planes on the device. Pass k computes the reads' width-k
-    plane, and pass k+1 reuses it as its width-(k-1) plane. A change of the
-    file (path, mtime or size) drops everything."""
+    of read_data_corrected.txt, parsed once per file identity, their u32
+    stream on the device (a KW `Stream`, uploaded once), and their
+    window-hash planes there. Pass k computes the reads' width-k plane, and
+    pass k+1 reuses it as its width-(k-1) plane. A change of the file
+    (path, mtime or size) drops everything."""
 
     def __init__(self):
         self.key = None
         self.items: list = []
         self.planes: dict = {}
+        self.stream: window_hash.Stream | None = None
 
     def reads(self, path: str):
         key = (path, os.path.getmtime(path), os.path.getsize(path))
         if key != self.key:
             self.key = key
             self.planes = {}
+            self.stream = None
             self.items = [(r.minimizers, 1 if r.is_circular else 0)
                           for r in records.read_read_data(path, False)]
         return self.items
+
+    def reads_stream(self, path: str, device) -> window_hash.Stream:
+        """The reads' minimizers as a KW stream on `device`."""
+        items = self.reads(path)
+        device = window_hash._device(device)
+        if self.stream is None or self.stream.device != device:
+            self.planes = {}
+            self.stream = window_hash.Stream([m for m, _ in items]).to(device)
+        return self.stream
 
 
 class MultiplexPass:
@@ -98,10 +113,10 @@ class MultiplexPass:
             f"{n} {t:.3f}s" for n, t in self.phase_seconds.items()))
 
     # ------------------------------------------------------------------
-    def _refined_prev_index(self) -> PairTable:
-        """loadRefinedAbundances (cpp:3401-3709): the previous pass's
-        abundance table (cnt==1 dropped) overlaid by each refined node's
-        window hashes in file order (count/refined.overlay_refined)."""
+    def _refined_nodes(self):
+        """loadRefinedAbundances' inputs (cpp:3401-3709): the previous
+        pass's abundance table with cnt==1 dropped (keys (N, 2), values),
+        and the refined nodes' sequences and abundances in file order."""
         keys, counts = gio.read_kminmer_abundances(
             os.path.join(self.out_dir, "kminmerData_abundance_prev.txt"))
         keep = counts != 1
@@ -117,43 +132,68 @@ class MultiplexPass:
         nodes = [(seq, idx // 2) for seq, idx in gio.read_unitig_nodes(
             os.path.join(self.out_dir, "unitigGraph_prev.nodes.bin"))
             if idx // 2 in refined]
-        ov_h1, ov_h2, ov_off = flat_window_hashes(
-            [seq for seq, _ in nodes], self.k_prev, self.device)
-        ab = torch.tensor([refined[name] for _, name in nodes],
-                          dtype=torch.int64, device=self.device)
+        return (base, base_v, [seq for seq, _ in nodes],
+                [refined[name] for _, name in nodes])
+
+    def _refined_prev_index(self, base, base_v, overlay, abundances
+                            ) -> PairTable:
+        """The previous pass's table overlaid by each refined node's window
+        hashes `overlay` (h1, h2, offsets) in file order
+        (count/refined.overlay_refined)."""
+        ov_h1, ov_h2, ov_off = overlay
+        ab = torch.tensor(abundances, dtype=torch.int64, device=self.device)
         ov_ab = torch.repeat_interleave(ab, ov_off[1:] - ov_off[:-1],
                                         output_size=ov_h1.shape[0])
         return overlay_refined(base[:, 0], base[:, 1], base_v,
                                ov_h1, ov_h2, ov_ab)
 
+    def _hash_planes(self, reads_path: str, refined_seqs: list,
+                     contig_seqs: list):
+        """Every window hash the count needs, in one KW launch: the refined
+        nodes at k-1, the reads at k-1 unless the previous pass left that
+        plane in the cache, the contigs at k-1, the reads and the contigs
+        at k. Returns (refined, reads at k-1, contigs at k-1, reads at k,
+        contigs at k), each (h1, h2, window offsets)."""
+        reads = self.cache.reads_stream(reads_path, self.device)
+        host = window_hash.Stream(refined_seqs + contig_seqs)
+        n_ref, kp, k = len(refined_seqs), self.k_prev, self.k
+        cached = self.cache.planes.get(kp)
+        segs = [window_hash.Segment(host, kp, hi=n_ref)]
+        if cached is None:
+            segs.append(window_hash.Segment(reads, kp))
+        segs += [window_hash.Segment(host, kp, lo=n_ref),
+                 window_hash.Segment(reads, k),
+                 window_hash.Segment(host, k, lo=n_ref)]
+        planes = window_hash.hash_segments(segs, self.device)
+        if cached is not None:
+            planes.insert(1, cached)
+        self.cache.planes.pop(kp, None)  # the next pass needs width k
+        self.cache.planes[k] = planes[3]
+        return planes
+
     def _count_kminmers(self):
         """IndexKminmerFunctor over reads then previous contigs
         (cpp:436-445); writes kminmerData_abundance.txt + small contigs."""
-        prev = self._refined_prev_index()
-        read_items = self.cache.reads(
-            os.path.join(self.out_dir, "read_data_corrected.txt"))
+        base, base_v, refined_seqs, refined_ab = self._refined_nodes()
+        reads_path = os.path.join(self.out_dir, "read_data_corrected.txt")
+        read_items = self.cache.reads(reads_path)
         contig_items = [(r.minimizers, 1 if r.is_circular else 0)
                         for r in records.read_read_data(
                             os.path.join(self.out_dir, "unitig_data.txt"),
                             False)]
         n_reads = len(read_items)
         items = read_items + contig_items
-        contig_seqs = [m for m, _ in contig_items]
+        overlay, *planes = self._hash_planes(
+            reads_path, refined_seqs, [m for m, _ in contig_items])
+        prev = self._refined_prev_index(base, base_v, overlay, refined_ab)
 
-        def sweep(w):
-            """Window hashes of reads + contigs at width w; the reads' plane
-            comes from the cache when the previous pass made it."""
-            plane = self.cache.planes.get(w)
-            if plane is None:
-                plane = flat_window_hashes([m for m, _ in read_items], w,
-                                           self.device)
-                self.cache.planes[w] = plane
-            rh1, rh2, roff = plane
-            ch1, ch2, coff = flat_window_hashes(contig_seqs, w, self.device)
+        def sweep(reads, contigs):
+            """Window hashes of reads + contigs at one width."""
+            (rh1, rh2, roff), (ch1, ch2, coff) = reads, contigs
             return (torch.cat([rh1, ch1]), torch.cat([rh2, ch2]),
                     torch.cat([roff, roff[-1] + coff[1:]]))
 
-        hp1, hp2, offp = sweep(self.k_prev)
+        hp1, hp2, offp = sweep(planes[0], planes[1])
         ab_prev, _ = prev.lookup(hp1, hp2, 1)
 
         lens = np.fromiter((m.shape[0] for m, _ in items), np.int64,
@@ -189,8 +229,7 @@ class MultiplexPass:
         x = torch.nonzero(keep).flatten()
         minab = torch.minimum(ab_prev[x], ab_prev[x + 1])
 
-        hk1, hk2, _ = sweep(self.k)
-        self.cache.planes.pop(self.k_prev, None)  # the next pass needs width k
+        hk1, hk2, _ = sweep(planes[2], planes[3])
         if hk1.shape[0] != minab.shape[0]:
             raise AssertionError("k-window and prev-window counts disagree")
 

@@ -167,6 +167,7 @@ class Pipeline:
         self.chain_launches: dict = {}
         self.chain_dp_launches: dict = {}
         self.row_count_launches: dict = {}
+        self.multiplex_phase_seconds: dict = {}  # summed over the passes
         self.sharded: dict = {}
         self.group = None
         self.reads_cache = multiplex.ReadsCache()
@@ -224,7 +225,9 @@ class Pipeline:
                    "by_stage": self.sketch_launches},
                "window_hash_kernel": {
                    "launches": window_hash.launches,
-                   "by_stage": self.window_hash_launches},
+                   "by_stage": self.window_hash_launches,
+                   "by_site": dict(sorted(window_hash.sites.items()))},
+               "multiplex_phase_seconds": self.multiplex_phase_seconds,
                "chain_kernel": {
                    "launches": kchain.launches,
                    "by_stage": self.chain_launches},
@@ -329,9 +332,12 @@ class Pipeline:
                         stage.run_graph_second_pass(self.tmp_dir, k, params,
                                                     self.device)
                     else:
-                        multiplex.run_graph_multiplex_pass(
+                        mp = multiplex.run_graph_multiplex_pass(
                             self.tmp_dir, k, params, self.device,
                             self.reads_cache)
+                        for name, dt in mp.phase_seconds.items():
+                            self.multiplex_phase_seconds[name] = \
+                                self.multiplex_phase_seconds.get(name, 0) + dt
                 self._mark(f"k{k}_createGraph")
 
             # AssemblyPipeline.hpp:492,834: --all-assembly-graph forces a

@@ -13,6 +13,7 @@ smallContigs_k*.bin, and contig_data_init.txt at the last pass.
 import glob
 import os
 import shutil
+import struct
 import sys
 
 import numpy as np
@@ -222,3 +223,149 @@ def test_simplify_scale_20k_same_output(tmp_path):
         name = os.path.join("filter", f"unitigs_{i}.bin")
         assert (tmp_path / "port" / name).read_bytes() == \
             (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_canonical_cycles_batch_matches_jax_package(monkeypatch):
+    """Many circular unitigs spelled in one batch (one KW launch for every
+    cycle's members, a second for the reversed walks): each as the JAX
+    package's one-cycle _canonical_cycle spells it, anchors read forward
+    and reversed, palindromic members and cycles of one member included."""
+    from metamdbg_tpu.graph import mdbg as jmdbg
+    from metamdbg_tpu_torch.graph import mdbg as pmdbg
+
+    k = 5
+    rng = np.random.default_rng(17)
+    rows = rng.integers(0, 1 << 32, size=(120, k), dtype=np.uint64) \
+        .astype(np.uint32)
+    rows[::9, k - 2:] = rows[::9, :2][:, ::-1]  # palindromes
+    oriented = np.empty((240, k), np.uint32)
+    oriented[0::2], oriented[1::2] = rows, rows[:, ::-1]
+    order = rng.permutation(240)
+    sizes = rng.integers(1, 13, size=30)
+    cycles = [order[a:b].tolist() for a, b in
+              zip(np.cumsum(sizes) - sizes, np.cumsum(sizes)) if b <= 240]
+    calls = []
+    real = pmdbg.flat_window_hashes
+    monkeypatch.setattr(pmdbg, "flat_window_hashes",
+                        lambda *a: calls.append(len(a[0])) or real(*a))
+    got = pmdbg._canonical_cycles(oriented, cycles, k, CPU)
+    assert len(calls) == 2 and calls[0] == sum(len(c) for c in cycles)
+    assert len(got) == len(cycles) > 20
+    for c, g in zip(cycles, got):
+        np.testing.assert_array_equal(g, jmdbg._canonical_cycle(oriented, c,
+                                                                k))
+    assert pmdbg._canonical_cycles(oriented, [], k, CPU) == []
+
+
+def _write_reads(path, seqs):
+    with open(path, "wb") as f:
+        for s in seqs:
+            f.write(struct.pack("<IB", s.shape[0], 0))
+            f.write(s.astype(np.uint32).tobytes())
+
+
+def test_reads_cache_uploads_once_per_file_identity(tmp_path, monkeypatch):
+    """ReadsCache builds the reads' KW stream on the device once per file
+    identity (path, mtime, size), and again after the file changes."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    uploads = []
+    real = kw.Stream.to
+    monkeypatch.setattr(kw.Stream, "to",
+                        lambda self, d: uploads.append(len(self)) or
+                        real(self, d))
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "read_data_corrected.txt")
+    seqs = [rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+            for n in (5, 0, 12, 40)]
+    _write_reads(path, seqs)
+    cache = pmultiplex.ReadsCache()
+    first = cache.reads_stream(path, CPU)
+    cache.planes[7] = "plane"
+    for _ in range(3):
+        assert cache.reads_stream(path, CPU) is first
+        assert len(cache.reads(path)) == 4
+    assert uploads == [4] and cache.planes == {7: "plane"}
+    assert first.words.dtype == torch.int32
+    np.testing.assert_array_equal(
+        first.words.numpy().view(np.uint32),
+        np.concatenate(seqs).astype(np.uint32))
+    _write_reads(path, seqs[:3])
+    second = cache.reads_stream(path, CPU)
+    assert second is not first and uploads == [4, 3] and cache.planes == {}
+
+
+def test_count_phase_makes_one_kw_request_a_pass(tmp_path, monkeypatch):
+    """A ladder of the port alone to k = 8: each multiplex pass's count
+    hashes every plane it needs in one KW request (segmented mode) and no
+    other, the reads' stream goes up once for all the passes, and the
+    reads' k-1 plane is the previous pass's k plane."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+    from metamdbg_tpu_torch.sketch import read_selection as prs
+
+    fq = str(tmp_path / "reads.fastq.gz")
+    datagen.make_test_fastq(fq, genome_len=20_000, coverage=10,
+                            mean_length=5000, error_rate=0.002, seed=9)
+    d = str(tmp_path / "run")
+    for sub in ("", "filter", "smallContigs"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    prs.run_read_selection([fq], d, _params(precords, FIRST_K, FIRST_K),
+                           CPU, skip_correction=True)
+
+    requests, uploads, in_count, active = [], [], [], [False]
+    real_hash, real_to = kw.hash_segments, kw.Stream.to
+    real_windows = kw.hash_windows
+    real_count = pmultiplex.MultiplexPass._count_kminmers
+
+    def count(self):
+        in_count.append([])
+        active[0] = True
+        try:
+            real_count(self)
+        finally:
+            active[0] = False
+
+    def hash_segments(segments, device):
+        if active[0]:
+            in_count[-1].append([(s.stream.device is not None, s.w)
+                                 for s in segments])
+        return real_hash(segments, device)
+
+    def hash_windows(*args, **kwargs):
+        if active[0]:
+            in_count[-1].append("explicit")
+        return real_windows(*args, **kwargs)
+
+    monkeypatch.setattr(pmultiplex.MultiplexPass, "_count_kminmers", count)
+    monkeypatch.setattr(kw, "hash_segments", hash_segments)
+    monkeypatch.setattr(kw, "hash_windows", hash_windows)
+    monkeypatch.setattr(kw.Stream, "to", lambda self, dev: uploads.append(
+        len(self)) or real_to(self, dev))
+    cache = pmultiplex.ReadsCache()
+    for k in range(FIRST_K, 9):
+        p = _params(precords, k, max(FIRST_K, k - 1))
+        p.save(os.path.join(d, "parameters.gz"))
+        for f in glob.glob(os.path.join(d, "filter", "*")):
+            os.remove(f)
+        if k == FIRST_K:
+            pstage.run_graph_first_pass(d, k, 0, CPU)
+        elif k == FIRST_K + 1:
+            pstage.run_graph_second_pass(d, k, p, CPU)
+        else:
+            in_count.clear()
+            pmultiplex.run_graph_multiplex_pass(d, k, p, CPU, cache)
+            assert len(in_count) == 1 and len(in_count[0]) == 1, in_count
+            requests.append(in_count[0][0])
+        pcontigs.run_contig_stage(d, p)
+        pcontigs.run_to_minspace(
+            d, os.path.join(d, "contigs.nodepath"),
+            os.path.join(d, "unitig_data.txt"),
+            os.path.join(d, "unitigGraph.nodes.bin"), p)
+    # the first multiplex pass hashes the reads at k-1 and k, the later
+    # ones at k only; the refined nodes and contigs go up with the request
+    assert requests[0] == [(False, 5), (True, 5), (False, 5), (True, 6),
+                           (False, 6)]
+    for k, req in zip((7, 8), requests[1:]):
+        assert req == [(False, k - 1), (False, k - 1), (True, k),
+                       (False, k)]
+    assert len(uploads) == 1 and uploads[0] > 0

@@ -291,6 +291,131 @@ def test_wrapper_checks_and_cpu_route():
     assert h1.shape == h2.shape == (0,)
 
 
+# -- the segmented mode: every window of each sequence of a stream ----------
+
+SEGMENT_CASES = ["w1", "w2", "w3", "w4", "w5", "w16", "w123", "mixed"]
+
+
+def _seqs(seed, n, w):
+    """Reads-like sequences for width w: empty ones, ones shorter than w,
+    of exactly w words and longer, cut from a stream whose words reach
+    2^32 - 1 (half of them set the int32 carriage's sign bit), every third
+    long enough one opening with a palindromic window."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 3 * w + 8, size=n)
+    lens[:4] = (0, w - 1, w, w + 1)
+    rng.shuffle(lens)
+    cat = _stream(int(lens.sum()) + 64, seed, high=1 << 32)
+    seqs = np.split(cat[:lens.sum()], np.cumsum(lens)[:-1])
+    for s in seqs[::3]:
+        if s.shape[0] >= w:
+            h = w // 2
+            s[w - h:w] = s[:h][::-1].copy()
+    return seqs
+
+
+def _jax_segment(seqs, w, normalize):
+    """The JAX package's hash of every w-window of each sequence, in
+    sequence then position order, and the window offsets: numpy
+    (normalize_rows + murmur128_u32rows, or raw rows), and for normalized
+    windows also the XLA sweep on padded rows + lengths
+    (parallel/count_table._window_hash_pairs), which must agree."""
+    from metamdbg_tpu.count.kminmers import normalize_rows as jnormalize
+    from metamdbg_tpu.parallel.count_table import _window_hash_pairs
+    from metamdbg_tpu.utils import hashing as jhashing
+
+    lens = np.array([s.shape[0] for s in seqs], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(np.maximum(lens - w + 1, 0))])
+    wins = [np.lib.stride_tricks.sliding_window_view(s, w)
+            for s in seqs if s.shape[0] >= w]
+    if not wins:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint64), offsets
+    win = np.concatenate(wins)
+    if normalize:
+        win = jnormalize(win)[0]
+    h1, h2 = jhashing.murmur128_u32rows(np.ascontiguousarray(win))
+    if normalize:
+        rows = np.zeros((len(seqs), max(int(lens.max()), w)), np.uint32)
+        for r, s in enumerate(seqs):
+            rows[r, :s.shape[0]] = s
+        out = [np.asarray(x) for x in _window_hash_pairs(
+            rows, lens.astype(np.int32), w)]
+        valid = out[4]
+        for h, lo, hi in ((h1, out[0], out[1]), (h2, out[2], out[3])):
+            xla = (lo[valid].astype(np.uint64)
+                   | (hi[valid].astype(np.uint64) << np.uint64(32)))
+            np.testing.assert_array_equal(xla, h)
+    return h1, h2, offsets
+
+
+def _segment_request(case, device="cpu"):
+    """(segments, the host sequences and (width, normalize) of each); the
+    second stream of "mixed" is moved to `device`."""
+    if case != "mixed":
+        w = int(case[1:])
+        seqs = _seqs(20 + w, 40, w)
+        st = kw.Stream(seqs)
+        return [kw.Segment(st, w, True), kw.Segment(st, w, False, 3, 37),
+                kw.Segment(st, w, True, 5, 5)], [
+            (seqs, w, True), (seqs[3:37], w, False), ([], w, True)]
+    a, b = _seqs(30, 60, 16), _seqs(31, 25, 123)
+    short = [s[:3] for s in a[:10]]  # every sequence shorter than w = 4
+    on_device = kw.Stream(b).to(device)
+    host = kw.Stream(a + short)
+    spec = [(host, 1, False, 0, 60), (on_device, 123, True, 0, 25),
+            (host, 16, True, 10, 50), (host, 4, True, 60, 70),
+            (on_device, 5, False, 2, 20), (host, 2, True, 7, 7),
+            (host, 3, True, 0, 70)]
+    seqs_of = {id(host): a + short, id(on_device): b}
+    return ([kw.Segment(st, w, nz, lo, hi) for st, w, nz, lo, hi in spec],
+            [(seqs_of[id(st)][lo:hi], w, nz) for st, w, nz, lo, hi in spec])
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segments_match_jax_package(case):
+    """The segmented mode (every window of each sequence named by its
+    stream, one request for several segments) against the JAX package's
+    hashes of the same windows, and against the explicit-starts mode on
+    the same stream: sequences shorter than w and empty ones, empty
+    segments, words >= 2^31, palindromic windows, widths 1-5, 16 and 123,
+    and segments of several widths, normalize on and off, over a host
+    stream and one moved to the device, in one request."""
+    segments, want = _segment_request(case)
+    got = kw.hash_segments(segments, "cpu")
+    assert len(got) == len(want)
+    for (h1, h2, offsets), (seqs, w, normalize) in zip(got, want):
+        j1, j2, joff = _jax_segment(seqs, w, normalize)
+        np.testing.assert_array_equal(_u64(h1), j1)
+        np.testing.assert_array_equal(_u64(h2), j2)
+        np.testing.assert_array_equal(offsets.numpy(), joff)
+        if j1.shape[0]:
+            cat = np.concatenate(seqs).astype(np.int64)
+            lens = np.array([s.shape[0] for s in seqs])
+            starts = np.concatenate([
+                o + np.arange(max(n - w + 1, 0))
+                for o, n in zip(np.cumsum(lens) - lens, lens)])
+            e1, e2 = kw.hash_windows(torch.from_numpy(cat),
+                                     torch.from_numpy(starts), w, normalize)
+            assert torch.equal(e1, h1) and torch.equal(e2, h2)
+    assert any(int(g[0].numel()) == 0 for g in got)  # an empty segment
+
+
+def test_segment_checks_raise_before_launch():
+    st = kw.Stream([np.arange(10, dtype=np.uint32)])
+    for bad in (kw.Segment(st, 0), kw.Segment(st, True),
+                kw.Segment(st, 3, lo=1, hi=2 + len(st)),
+                kw.Segment(st, 3, lo=1, hi=0)):
+        with pytest.raises(ValueError):
+            kw.hash_segments([bad], "cpu")
+    with pytest.raises(ValueError, match="Stream"):
+        kw.hash_segments([kw.Segment([np.arange(4)], 2)], "cpu")
+    with pytest.raises(ValueError, match="no window hash kernel"):
+        kw.hash_segments([kw.Segment(st, 3)], "meta")
+    kw.reset_counts()
+    (h1, _, off), = kw.hash_segments([kw.Segment(st, 3)], "cpu")
+    assert h1.shape == (8,) and off.tolist() == [0, 8] and kw.launches == 0
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
@@ -374,3 +499,21 @@ def test_cuda_range_check_raises(kind):
         bad[3] = 0
         with pytest.raises(ValueError, match=">= 1"):
             kw.hash_windows(cat, starts.cuda(), bad, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_cuda_segments_match_reference(case):
+    """The segmented kernel against its plain version on the card, on the
+    same requests as the CPU test: bit-identical, one launch a request."""
+    _need_gpu()
+    segments, _ = _segment_request(case, "cuda")
+    kw.reset_counts()
+    got = kw.hash_segments(segments, "cuda")
+    assert kw.launches == 1
+    segs, n_total, table = kw._prepare(segments, "cuda")
+    out = kw._launch_segments(segs, n_total, table)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kw.hash_segments_reference(segs, n_total))
+    assert torch.equal(torch.cat([g[0] for g in got]), out[:n_total])
+    assert torch.equal(torch.cat([g[1] for g in got]), out[n_total:])

@@ -1,11 +1,11 @@
 """Time a parent commit's K1, KW, K3 and K4 beside the current ones on one
-NVIDIA GPU, and the device's idle share over the HiFi asm.
+NVIDIA GPU, and the HiFi asm of both, in turns, under torch.profiler.
 
-Run from the root of a checkout, with the parent commit's package unpacked
-into a directory that .gitignore lists:
+Run from the root of a checkout, with the parent commit's package and its
+native/ unpacked into a directory that .gitignore lists:
 
     mkdir -p chip_checkout/parent
-    git archive HEAD~1 metamdbg_tpu_torch | tar -x -C chip_checkout/parent
+    git archive HEAD~1 metamdbg_tpu_torch native | tar -x -C chip_checkout/parent
     python3 tools/kernel_ab.py chip_checkout/parent
 
 The parent's package is imported from that directory under another name
@@ -18,27 +18,39 @@ Both are timed by chip_smoke._time_ms (CUDA events around a CUDA graph of
 20 launches, the median of 3) in turns: parent, current, current, parent;
 each side's figure is the median of its two. The parent's outputs must
 equal the current kernel's, which chip_smoke.py holds against the plain
-versions.
+versions. A current KW launch in the segmented mode is set against the
+parent's explicit-starts kernel on the same windows: one parent launch per
+segment, on the stream widened to int64 and a start per window.
 
 1. K1 on chip_smoke.py phase 3's (512, 16384) tiles at the main path's
    three densities;
 2. KW on phase 3b's stream of 4,194,304 minimizers, dense at w = 16, 61
    and 123, shuffled at w = 16, and on (2^20, 24) row slices at w = 23;
+   and on phase 3b's reads-like stream at w = 16 and 40, the current
+   kernel in the segmented mode; the host clock per
+   `count/kminmers.flat_window_hashes` call of each package, its result
+   read back, at 64, 2,000 and 31,000 windows;
 3. K3 on phase 3d's groups and K4 on phase 3e's at band 62;
 4. the HiFi asm of phase 4 (`asm --device cuda --threads 1`, the JAX
-   package refused) under torch.profiler, every K1 and KW launch and the
-   K3 call recorded as chip_smoke.py records them: the stage walls, the
-   device's busy time and idle share, the largest device-time entries and
-   each kernel's device time in its launches;
-5. the asm's own launches again: every K1 launch and the KW launches of
-   chip_smoke.kw_replay_set, with the sums of both sides' times and of the
-   bounds, and the K3 call; the host clock per hash_windows call of both
-   wrappers on the 20 smallest KW launches; and the ONT asm's K4 call where
-   chip_smoke.py phase 8 saved it in this checkout (chip_inputs/, so run
-   chip_smoke.py first in the same call).
+   package refused) four times, parent, current, current, parent, each
+   through its own package's entry point under torch.profiler: the asm
+   wall, the ladder (k*_createGraph + k*_generateContigs, and each) and
+   each phase of the multiplex passes summed (MultiplexPass.phase_seconds),
+   the host clock in the `flat_window_hashes` and `PairTable.lookup`
+   calls of their phases after the count,
+   the device's busy time and idle share, KW's launches and device time;
+   every KW launch of each side's first run is recorded, and the sum of
+   their bounds (chip_smoke.kw_call_bound, the stream at 4 bytes a word
+   for both) printed beside the device time;
+5. the current asm's own launches again: every K1 launch and the KW
+   launches of chip_smoke.kw_replay_set, with the sums of both sides'
+   times and of the bounds, and the K3 call; and the ONT asm's K4 call
+   where chip_smoke.py phase 8 saved it in this checkout (chip_inputs/, so
+   run chip_smoke.py first in the same call).
 """
 
 import concurrent.futures
+import contextlib
 import importlib
 import importlib.util
 import os
@@ -130,6 +142,30 @@ def kw_ab(what, pkw, cat, starts, w, normalize):
             cs.kw_launch_bound(cat.numel(), starts, w, normalize))
 
 
+def kw_segments_ab(what, pkw, segs, n_total):
+    """The current segmented launch against the parent's explicit-starts
+    kernel on the same windows (one launch per segment): equal outputs, or
+    fail; returns (parent ms, current ms, the current launch's bound)."""
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    out = kw._launch_segments(segs, n_total)
+    parent = []
+    for s in segs:
+        if not s.n_win:
+            continue
+        cat = s.words.to(torch.int64) & 0xFFFFFFFF
+        starts = kw.segment_starts(s)
+        h1, h2 = pkw.hash_windows(cat, starts, s.w, s.normalize)
+        if not (torch.equal(h1, out[s.out:s.out + s.n_win]) and torch.equal(
+                h2, out[n_total + s.out:n_total + s.out + s.n_win])):
+            cs.fail(f"ab window_hash {what}: the parent's kernel differs "
+                    f"from the current one")
+        parent.append(kw_run(pkw, cat, starts, s.w, s.normalize))
+    return (*turns(lambda: [fn() for fn in parent],
+                   cs._kw_segments_timer(segs, n_total)),
+            cs.kw_segments_bound(segs))
+
+
 def k3_ab(what, pk3, inputs, d_r_max):
     """Both K3s on one call's inputs: equal outputs, or fail; returns
     (parent ms, current ms, bound)."""
@@ -200,6 +236,16 @@ def synthetic_phase(dev, pk1, pkw, pk3, pk4):
     for what, c, starts, w, normalize in shapes:
         print(f"ab window_hash {starts.numel()} windows " + _line(
             what, *kw_ab(what, pkw, c, starts, w, normalize)))
+    from metamdbg_tpu_torch.kernels import window_hash as kw
+
+    reads = kw.Stream(cs._kw_reads(cs.KW_STREAM, seed=310)).to(dev)
+    for w in (16, 40):
+        segs, n_total, _ = kw._prepare([kw.Segment(reads, w)], dev)
+        what = (f"reads-like stream ({len(reads)} sequences) w={w} "
+                f"normalize, current segmented")
+        print(f"ab window_hash {n_total} windows " + _line(
+            what, *kw_segments_ab(what, pkw, segs, n_total)))
+    flat_window_hashes_ab(dev)
     from metamdbg_tpu_torch.basespace.contig_mapper import _d_r_max
 
     rng = np.random.default_rng(400)
@@ -224,63 +270,200 @@ def synthetic_phase(dev, pk1, pkw, pk3, pk4):
                                               cs.CHAIN_DP_TIMED)))
 
 
-def profile_summary(prof, wall):
+def flat_window_hashes_ab(dev):
+    """Host clock per `count/kminmers.flat_window_hashes` call of each side,
+    its result read back as the ladder's callers read theirs, on host
+    sequences of the sizes the multiplex passes' later phases hash (tens
+    to tens of thousands of windows), in turns."""
+    from metamdbg_tpu_torch.count import kminmers
+
+    pkm = importlib.import_module(f"{PARENT}.count.kminmers")
+    rng = np.random.default_rng(306)
+    for n_seqs, length, w in ((64, 40, 40), (100, 60, 41), (1000, 70, 40)):
+        seqs = [rng.integers(0, 1 << 32, size=length, dtype=np.uint64)
+                .astype(np.uint32) for _ in range(n_seqs)]
+        fns = [lambda mod=mod: mod.flat_window_hashes(seqs, w, dev)[0].cpu()
+               for mod in (pkm, kminmers)]
+        if not torch.equal(fns[0](), fns[1]()):
+            cs.fail("ab flat_window_hashes: the parent's result differs")
+        p1, c1, c2, p2 = (cs._host_ms(fns[i]) for i in (0, 1, 1, 0))
+        n_win = n_seqs * (length - w + 1)
+        print(f"ab flat_window_hashes {n_seqs} sequences of {length} words, "
+              f"w={w} ({n_win} windows): host clock per call, result read "
+              f"back: parent {statistics.median([p1, p2]):.4f} ms, current "
+              f"{statistics.median([c1, c2]):.4f} ms")
+
+
+def profile_summary(tag, prof, wall):
     """Device time in all and by kernel from a torch.profiler run, and the
-    idle share of the wall."""
+    idle share of the wall; returns (busy s, KW's device ms, KW's
+    launches seen by the profiler)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
     busy_s = sum(dev_us(e) for e in events) / 1e6
-    print(f"ab profile: device busy {busy_s:.4f} s of a {wall:.1f} s wall, "
-          f"idle {1 - busy_s / wall:.4%}")
+    print(f"ab {tag} profile: device busy {busy_s:.4f} s of a {wall:.1f} s "
+          f"wall, idle {1 - busy_s / wall:.4%}")
     for e in events[:8]:
-        print(f"ab profile: {dev_us(e) / 1e3:.2f} ms, {e.count} calls: "
+        print(f"ab {tag} profile: {dev_us(e) / 1e3:.2f} ms, {e.count} calls: "
               f"{e.key[:90]}")
-    for name in ("sketch_tiles_kernel", "window_hash_kernel",
-                 "chain_contig_kernel", "chain_dp_kernel"):
-        own = [e for e in events if name in e.key]
-        print(f"ab profile: {name}: "
-              f"{sum(dev_us(e) for e in own) / 1e3:.4f} ms of device time "
-              f"in {sum(e.count for e in own)} launches")
+    kw_ms = kw_n = 0
+    for name in ("sketch_tiles_kernel", "window_hash", "chain_contig_kernel",
+                 "chain_dp_kernel"):
+        own = [e for e in events if name in e.key and e.count
+               and dev_us(e) > 0]
+        ms, n = sum(dev_us(e) for e in own) / 1e3, sum(e.count for e in own)
+        print(f"ab {tag} profile: {name}: {ms:.4f} ms of device time in "
+              f"{n} launches")
+        if name == "window_hash":
+            kw_ms, kw_n = ms, n
+    return busy_s, kw_ms, kw_n
 
 
-def asm_phase(work, dev, fq):
-    """The HiFi asm under torch.profiler; returns the recorded (KW, K1,
-    K3) launches."""
-    from metamdbg_tpu_torch.__main__ import main
-    from metamdbg_tpu_torch.kernels import chain as kchain
-    from metamdbg_tpu_torch.kernels import sketch as ksketch
-    from metamdbg_tpu_torch.kernels import window_hash as kw
+def asm_run(work, dev, fq, pkg, tag, record):
+    """The HiFi asm through `pkg`'s Pipeline, as `asm --in-hifi FQ
+    --device cuda --threads 1` builds it (the package's __main__ imports
+    the installed name, not `pkg`), under torch.profiler; returns (its
+    numbers, and when `record` its recorded (KW, K1, K3) launches, KW's as
+    chip_smoke.KWRecorder keeps them)."""
+    pipeline = importlib.import_module(f"{pkg}.pipeline.asm").Pipeline
+    parallel = importlib.import_module(f"{pkg}.parallel")
+    kw, ksketch, kchain = (importlib.import_module(f"{pkg}.kernels.{m}")
+                           for m in ("window_hash", "sketch", "chain"))
+    mplex = importlib.import_module(f"{pkg}.graph.multiplex")
+    phases, passes = {}, []
+    real_run = mplex.MultiplexPass.run
 
-    out = os.path.join(work, "port")
+    def run(self):
+        real_run(self)
+        passes.append(self.k)
+        for name, dt in self.phase_seconds.items():
+            phases[name] = phases.get(name, 0.0) + dt
+
+    # the host clock inside the window hashes and table lookups of the
+    # multiplex passes' phases after the count (the lookups wait for the
+    # card, and so for the hashes)
+    calls = {"flat_window_hashes": [0, 0.0], "PairTable.lookup": [0, 0.0]}
+    pair_table = mplex.PairTable
+    real = {"flat_window_hashes": mplex.flat_window_hashes,
+            "PairTable.lookup": pair_table.lookup,
+            "count": mplex.MultiplexPass._count_kminmers}
+    counting = [False]
+
+    def count(self):
+        counting[0] = True
+        try:
+            real["count"](self)
+        finally:
+            counting[0] = False
+
+    def timed(name):
+        def fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                if not counting[0]:
+                    calls[name][0] += 1
+                    calls[name][1] += time.perf_counter() - t0
+        return fn
+
+    out = os.path.join(work, tag)
     os.environ["METAMDBG_TPU_KEEP_TMP"] = "1"
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    with cs.LaunchRecorder(kw) as kw_rec, cs.LaunchRecorder(ksketch) as \
-            k1_rec, cs.LaunchRecorder(kchain) as k3_rec:
-        prof.start()
-        t0 = time.perf_counter()
-        rc = main(["asm", "--out-dir", out, "--in-hifi", fq, "--device",
-                   dev.type, "--threads", "1"])
-        wall = time.perf_counter() - t0
-        prof.stop()
-    if rc != 0:
-        cs.fail(f"asm returned {rc}")
+    kw.reset_counts()
+    recorders = ((cs.KWRecorder(kw) if hasattr(kw, "_launch_segments")
+                  else cs.LaunchRecorder(kw)), cs.LaunchRecorder(ksketch),
+                 cs.LaunchRecorder(kchain)) if record else ()
+    mplex.MultiplexPass.run = run
+    mplex.MultiplexPass._count_kminmers = count
+    mplex.flat_window_hashes = timed("flat_window_hashes")
+    pair_table.lookup = timed("PairTable.lookup")
+    try:
+        with contextlib.ExitStack() as stack:
+            for r in recorders:
+                stack.enter_context(r)
+            prof.start()
+            t0 = time.perf_counter()
+            try:
+                pipeline(out, [fq], platform="hifi", device=dev.type,
+                         n_threads=1).run()
+            finally:
+                parallel.shutdown()
+            wall = time.perf_counter() - t0
+            prof.stop()
+    finally:
+        mplex.MultiplexPass.run = real_run
+        mplex.MultiplexPass._count_kminmers = real["count"]
+        mplex.flat_window_hashes = real["flat_window_hashes"]
+        pair_table.lookup = real["PairTable.lookup"]
     walls, rss = cs._stage_walls(out)
-    for name, dt in walls.items():
-        print(f"ab asm stage {name}: {dt:.2f} s")
-    print(f"ab asm: wall {wall:.1f} s under torch.profiler, peak RSS {rss}; "
-          f"{len(kw_rec.calls)} KW, {len(k1_rec.calls)} K1 and "
-          f"{len(k3_rec.calls)} K3 launches")
-    profile_summary(prof, wall)
-    return kw_rec.calls, k1_rec.calls, k3_rec.calls
+    busy_s, kw_ms, kw_seen = profile_summary(tag, prof, wall)
+    res = {"wall": wall, "createGraph": walls["k*_createGraph"],
+           "generateContigs": walls["k*_generateContigs"],
+           **{f"multiplex {name}": dt for name, dt in phases.items()},
+           **{f"multiplex {name} s": c[1] for name, c in calls.items()},
+           "kw_ms": kw_ms, "kw_launches": kw.launches, "busy_s": busy_s,
+           "idle": 1 - busy_s / wall}
+    res["ladder"] = res["createGraph"] + res["generateContigs"]
+    sites = getattr(kw, "sites", None)
+    print(f"ab {tag}: asm wall {wall:.1f} s under torch.profiler, peak RSS "
+          f"{rss}; ladder {res['ladder']:.2f} s (createGraph "
+          f"{res['createGraph']:.2f} s, generateContigs "
+          f"{res['generateContigs']:.2f} s); the {len(passes)} multiplex "
+          f"passes' phases summed (s) "
+          + ", ".join(f"{n} {dt:.3f}" for n, dt in phases.items())
+          + "; in the phases after the count "
+          + ", ".join(f"{n} {c[0]} calls {c[1]:.3f} s"
+                      for n, c in calls.items())
+          + f"; KW {kw.launches} launches ({kw_seen} seen by the "
+          f"profiler), {kw_ms:.4f} ms of device time"
+          + (f"; KW launches by call site {dict(sites)}"
+             if sites is not None else ""))
+    shutil.rmtree(out, ignore_errors=True)
+    if not record:
+        return res, None
+    kw_rec, k1_rec, k3_rec = recorders
+    kw_calls = [(c if isinstance(kw_rec, cs.KWRecorder) else ("starts", c),
+                 h) for c, h in kw_rec.calls]
+    b_ms = sum(cs.kw_call_bound(c)[0] for c, _ in kw_calls)
+    res["kw_bound_ms"] = b_ms
+    print(f"ab {tag}: KW bound over its {len(kw_calls)} launches "
+          f"{b_ms:.4f} ms against {kw_ms:.4f} ms of device time")
+    return res, (kw_calls, k1_rec.calls, k3_rec.calls)
+
+
+def asm_turns(work, dev, fq):
+    """The asm with each side in turns: parent, current, current, parent.
+    Returns the current side's recorded launches."""
+    runs = {"parent": [], "current": []}
+    recorded = None
+    for i, side in enumerate(("parent", "current", "current", "parent")):
+        pkg = PARENT if side == "parent" else "metamdbg_tpu_torch"
+        res, calls = asm_run(work, dev, fq, pkg, f"{side}{i}", i < 2)
+        runs[side].append(res)
+        if side == "current" and calls is not None:
+            recorded = calls
+    for key in runs["current"][0]:
+        if key == "kw_bound_ms":
+            continue
+        p, c = ([r[key] for r in runs[s]] for s in ("parent", "current"))
+        print(f"ab asm {key}: parent {statistics.median(p):.4f} "
+              f"({', '.join(f'{x:.4f}' for x in p)}), current "
+              f"{statistics.median(c):.4f} "
+              f"({', '.join(f'{x:.4f}' for x in c)})")
+    for side in ("parent", "current"):
+        r = runs[side][0]
+        print(f"ab asm {side}: KW device time {r['kw_ms']:.4f} ms in "
+              f"{r['kw_launches']} launches, bound {r['kw_bound_ms']:.4f} "
+              f"ms ({r['kw_bound_ms'] / max(r['kw_ms'], 1e-9):.1%})")
+    return recorded
 
 
 def replay_phase(kw_calls, k1_calls, k3_calls, pk1, pkw, pk3, pk4):
-    from metamdbg_tpu_torch.kernels import window_hash as kw
-
     sums = [0.0, 0.0, 0.0]
     for i, ((codes, l, density, cap), _) in enumerate(k1_calls):
         for j, v in enumerate(k1_ab(f"main-path launch {i}", pk1, codes, l,
@@ -289,28 +472,18 @@ def replay_phase(kw_calls, k1_calls, k3_calls, pk1, pkw, pk3, pk4):
     print("ab sketch_tiles " + _line(
         f"the asm's {len(k1_calls)} launches", sums[0], sums[1],
         (sums[2], "sum")))
-    keep, share, info = cs.kw_replay_set(kw_calls)
+    keep, share, _ = cs.kw_replay_set(kw_calls)
     sums = [0.0, 0.0, 0.0]
     for i in keep:
-        cat, starts, w, normalize = kw_calls[i][0]
-        for j, v in enumerate(kw_ab(f"main-path launch {i}", pkw, cat,
-                                    starts, w, normalize)):
+        (mode, args), _ = kw_calls[i]
+        what = f"main-path launch {i}"
+        res = (kw_segments_ab(what, pkw, *args) if mode == "segments"
+               else kw_ab(what, pkw, *args))
+        for j, v in enumerate(res):
             sums[j] += v[0] if j == 2 else v
     print("ab window_hash " + _line(
         f"{len(keep)} of the asm's {len(kw_calls)} launches ({share:.2%} of "
         f"window words)", sums[0], sums[1], (sums[2], "sum")))
-    small = [i for i in range(len(kw_calls)) if info[i][0] < cs.KW_BINS[2]]
-    host = {"parent": [], "current": []}
-    for i in small[:20]:
-        cat, starts, w, normalize = kw_calls[i][0]
-        for side, mod in (("parent", pkw), ("current", kw), ("current", kw),
-                          ("parent", pkw)):
-            host[side].append(cs._host_ms(
-                lambda: mod.hash_windows(cat, starts, w, normalize)))
-    print(f"ab window_hash host clock per hash_windows call on the "
-          f"{len(small[:20])} smallest launches (< {cs.KW_BINS[2]} windows): "
-          f"parent {statistics.mean(host['parent']):.4f} ms, current "
-          f"{statistics.mean(host['current']):.4f} ms")
     for i, (args, _) in enumerate(k3_calls):
         sizes = np.diff(args[4].cpu().numpy())
         what = (f"the asm's call {i} ({sizes.size} groups, {int(sizes.sum())} "
@@ -349,7 +522,7 @@ def main():
               f"chain_dp kernels built from {sys.argv[1]}")
         synthetic_phase(dev, *parent)
         fq = cs.reads_wait(job, "ab")
-        replay_phase(*asm_phase(work, dev, fq), *parent)
+        replay_phase(*asm_turns(work, dev, fq), *parent)
     finally:
         if job[1].poll() is None:
             job[1].kill()

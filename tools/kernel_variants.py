@@ -20,7 +20,10 @@ l = 15 and densities 0.005 and 0.1; KW on 4,194,304 windows at w = 4, 16,
 on (2^20, 24) row slices, on 24,576 windows at w = 32 (a launch of the
 ladder's size), on 4,000 whole unitigs of up to 20,000 words, and on the
 planes of a ladder (10,000 reads of ~60 minimizers at w = 4..123, 120
-launches, timed as a sum); K3 (chain_contig) on phase 3d's groups and on
+launches, timed as a sum), the same planes in the segmented mode (one
+launch per width over the reads' stream on the card, 120 launches) and one
+segmented launch over phase 3b's reads-like stream at w = 16 and 40; K3
+(chain_contig) on phase 3d's groups and on
 groups shaped like toBasespace's call (10,180 of 2-77 anchors); K4
 (chain_dp) on 100,000 of phase 3e's groups plus a 10,003-anchor one at
 band 62, and on the ONT asm's own call where chip_smoke.py saved it
@@ -145,6 +148,28 @@ def _kw_cases(dev):
     yield "ladder planes w=4..123 (120 launches)", [
         _kw_launch(rcat, window_starts(tl, w)[0], w, True)
         for w in range(4, 124)]
+    # the same planes in the segmented mode, and phase 3b's reads
+    reads = kw.Stream(np.split(cs._kw_stream(int(lens.sum()), seed=304)
+                               .astype(np.uint32), np.cumsum(lens)[:-1]))
+    reads.to(dev)
+    yield "ladder planes segmented w=4..123 (120 launches)", [
+        _kw_segments_launch([kw.Segment(reads, w)], dev)
+        for w in range(4, 124)]
+    reads = kw.Stream(cs._kw_reads(cs.KW_STREAM, seed=310)).to(dev)
+    for w in (16, 40):
+        yield f"reads-like segmented w={w}", [
+            _kw_segments_launch([kw.Segment(reads, w)], dev)]
+
+
+def _kw_segments_launch(segments, dev):
+    """(check, _enqueue_segments' arguments, its name) of one segmented KW
+    launch into a fresh output."""
+    segs, n_total, table = kw._prepare(segments, dev)
+    ref = kw.hash_segments_reference(segs, n_total)
+    out = torch.empty(2 * n_total, dtype=torch.int64, device=dev)
+    live = sum(1 for s in segs if s.n_win)
+    return ((lambda: torch.equal(out, ref)),
+            (table, live, kw._n_tiles(segs), out), "_enqueue_segments")
 
 
 def _kw_launch(c, starts, w, normalize):
@@ -253,7 +278,7 @@ def main():
         for name, run in runners.items():
             run()
             torch.cuda.synchronize()
-            if not all(check() for check, _ in launches):
+            if not all(check() for check, *_ in launches):
                 sys.exit(f"{name} {what}: differs from the plain version")
             times[name] = [cs._time_ms(run)]
         # the committed source again, last
@@ -264,10 +289,12 @@ def main():
 
 
 def _runner(module, lib, launches):
+    """Every launch of a case through the wrapper's `_enqueue`, or the
+    function a launch names third."""
     def run():
         with _using(module, lib):
-            for _, args in launches:
-                module._enqueue(*args)
+            for _, args, *fn in launches:
+                getattr(module, fn[0] if fn else "_enqueue")(*args)
     return run
 
 

@@ -27,7 +27,8 @@ every subcommand.
   exit), every stage's wall from tmp/memoryTrack.txt with the process's
   VmRSS sampled every 0.1 s by this process (its highest value in the stage
   and its value at the stage's end), the peak RSS, which bounded paths
-  fired, the kernels' launches per stage (tmp/device.json), each pass's
+  fired, the kernels' launches per stage, KW's per call site and the
+  multiplex passes' phase walls summed (tmp/device.json), each pass's
   graph artifact digests as the pass ends, the sha256 of every file left in
   tmp/ and of the decompressed contigs.fasta.gz, the reads' sha256,
   os.cpu_count() and the card's nvidia-smi name and power limit. The
@@ -541,10 +542,12 @@ def run_asm(side, preset, bounded, threads, work, results, walk=False):
         stages.append({"name": name, "wall_s": float(dt.rstrip("s")),
                        "peak_rss_gb": float(peak.rstrip("GB")),
                        "rss_max_gb": hi, "rss_end_gb": end})
-    launches = None
+    launches = by_site = phases = None
     if side == "ours":
         dev = json.load(open(os.path.join(tmp, "device.json")))
         launches = {k: dev[k]["by_stage"] for k in KERNELS}
+        by_site = dev["window_hash_kernel"].get("by_site")
+        phases = dev.get("multiplex_phase_seconds")
     doc = {
         "tag": tag, "package": package, "preset": preset,
         "bounded": bounded, "env": BOUND_ENV if bounded else {},
@@ -558,6 +561,8 @@ def run_asm(side, preset, bounded, threads, work, results, walk=False):
                            [s["rss_max_gb"] for s in stages]),
         "bounded_paths": bounded_evidence(text),
         "launches_by_stage": launches,
+        "window_hash_by_site": by_site,
+        "multiplex_phase_seconds": phases,
         "timing": [line.split(" INFO ", 1)[-1].strip()
                    for line in text.splitlines()
                    if re.search(r"timing|tiling: |partitions: |checksum",
@@ -580,7 +585,9 @@ def run_asm(side, preset, bounded, threads, work, results, walk=False):
           f"{json.dumps(doc['stage_split_s'])}; peak RSS "
           f"{doc['peak_rss_gb']:.3f} GB; bounded "
           f"{json.dumps(doc['bounded_paths'])}; launches "
-          f"{json.dumps(launches)}; contigs sha256 {doc['contigs_sha256']}",
+          f"{json.dumps(launches)}; window hash launches by call site "
+          f"{json.dumps(by_site)}; multiplex phases summed (s) "
+          f"{json.dumps(phases)}; contigs sha256 {doc['contigs_sha256']}",
           flush=True)
     return doc
 
