@@ -6,6 +6,8 @@ The `asm`, `gfa` and `map` subcommands of metamdbg_tpu with the same
 arguments, plus ``--device {cuda,cpu}`` (default cuda) on each. `cuda`
 needs a usable NVIDIA GPU and raises at startup without one; `cpu` runs
 the kernels' plain torch versions. `asm` and `gfa` take ``--threads``.
+``asm --trace-out PATH`` writes the program's spans (utils/spans.py) as
+Chrome trace JSON.
 
 `asm` runs as N ranks when METAMDBG_TPU_DISTRIBUTED is set (the variables
 of metamdbg_tpu_torch/parallel/__init__.py; an --out-dir per rank): every
@@ -48,6 +50,9 @@ def main(argv=None):
                           " (higher disk usage)")
     asm.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="where the ported stages run (default cuda)")
+    asm.add_argument("--trace-out", default=None, metavar="PATH",
+                     help="record the program's spans for the whole run "
+                          "and write them to PATH as Chrome trace JSON")
 
     gfa = sub.add_parser("gfa", help="export assembly graphs")
     gfa.add_argument("out_dir", help="assembly output dir (with tmp/)")
@@ -99,6 +104,9 @@ def main(argv=None):
 
     from metamdbg_tpu_torch import parallel
     from metamdbg_tpu_torch.pipeline.asm import Pipeline
+    from metamdbg_tpu_torch.utils import spans
+    if args.trace_out:
+        spans.record_all()
     pipeline = Pipeline(args.out_dir, reads,
                         platform="hifi" if args.in_hifi else "ont",
                         device=args.device,
@@ -119,6 +127,8 @@ def main(argv=None):
         pipeline.run()
     finally:
         parallel.shutdown()
+        if args.trace_out:
+            spans.write_chrome_trace(args.trace_out)
     return 0
 
 

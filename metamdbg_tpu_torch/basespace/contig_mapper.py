@@ -29,6 +29,7 @@ import torch
 
 from ..io import records
 from ..kernels import chain as kchain
+from ..utils import spans
 from .chaining import PairIndex, normalized_pairs
 
 CHAIN_BAND = 10
@@ -189,6 +190,7 @@ def map_reads_to_contigs(read_file: str, contig_file: str, output_file: str,
     with open(output_file, "wb") as f:
 
         def flush():
+            spans.add("reads", len(recs))
             for mapping in _chain_and_select(recs, groups, avg_dist, device):
                 if mapping is None:
                     continue
@@ -221,6 +223,8 @@ def chain_groups(recs, groups, avg_dist, device):
     q_bp = np.concatenate([recs[g[0]].positions[g[3]]
                            for g in groups]).astype(np.int32)
     is_rev = np.concatenate([g[4] for g in groups]).astype(bool)
+    spans.add("groups", len(groups))
+    spans.add("anchors", int(offsets[-1]))
     _, parents, best = kchain.chain_contig(
         *(torch.from_numpy(x).to(device)
           for x in (ref_pos, q_pos, q_bp, is_rev, offsets)),

@@ -23,12 +23,11 @@ engine directly (one GPU, one host: no multi-host sharding).
 """
 
 import logging
-import time
 
 import numpy as np
 
 from ..parallel.polish_mesh import polish_windows_distributed
-from ..utils import threadmap
+from ..utils import spans, threadmap
 from . import overlap, overlap_native, window_cut_native
 
 log = logging.getLogger("metamdbg_tpu_torch")
@@ -308,167 +307,178 @@ def polish_pass(contigs: dict, headers: dict, reads: list,
     With `group` (two or more ranks), the window POAs fan out over the
     ranks (parallel/polish_mesh.py).
     """
-    _t0 = time.perf_counter()
-    pack0 = dict(threadmap.pack_seconds)
-    all_alignments = map_reads_to_contigs(contigs, reads, device,
-                                          read_sketches=read_sketches,
-                                          n_threads=n_threads)
-    contig_coverages = compute_contig_coverages(contigs, all_alignments)
-    _t_map = time.perf_counter()
+    with spans.span("polish.map") as s_map:
+        all_alignments = map_reads_to_contigs(contigs, reads, device,
+                                              read_sketches=read_sketches,
+                                              n_threads=n_threads)
+        contig_coverages = compute_contig_coverages(contigs, all_alignments)
+        s_map.add("reads", len(reads))
+        s_map.add("alignments", sum(len(v) for v in all_alignments.values()))
 
-    # collect window fragments
-    window_seqs: dict = {cid: [[] for _ in range(
-        int(np.ceil(seq.shape[0] / WINDOW_LEN)))]
-        for cid, seq in contigs.items()}
-    read_map = {r[0]: r for r in reads}
+    with spans.span("polish.cut") as s_cut:
+        # collect window fragments
+        window_seqs: dict = {cid: [[] for _ in range(
+            int(np.ceil(seq.shape[0] / WINDOW_LEN)))]
+            for cid, seq in contigs.items()}
+        read_map = {r[0]: r for r in reads}
 
-    active: dict | None = None
-    if restrict is not None:
-        active = {}
-        for cid, seq in contigs.items():
-            n_windows = len(window_seqs[cid])
-            mask = np.zeros(n_windows, bool)
-            for (s, e) in restrict.get(cid, ()):
-                w0 = max(0, int(s) // WINDOW_LEN)
-                w1 = min(n_windows, int(e) // WINDOW_LEN + 1)
-                mask[w0:w1] = True
-            active[cid] = mask
+        active: dict | None = None
+        if restrict is not None:
+            active = {}
+            for cid, seq in contigs.items():
+                n_windows = len(window_seqs[cid])
+                mask = np.zeros(n_windows, bool)
+                for (s, e) in restrict.get(cid, ()):
+                    w0 = max(0, int(s) // WINDOW_LEN)
+                    w1 = min(n_windows, int(e) // WINDOW_LEN + 1)
+                    mask[w0:w1] = True
+                active[cid] = mask
 
-    # filtered (read, alignment) work list, oracle iteration order
-    items = []
-    for read_index, als in all_alignments.items():
-        _, seq, qual = read_map[read_index]
-        for al in als:
-            if al.contig_index not in contigs:
-                continue
-            contig_len = contigs[al.contig_index].shape[0]
-            if al.contig_start >= contig_len:
-                continue
-            al.contig_end = min(al.contig_end, contig_len)
-            if al.identity < 0.9:
-                continue
-            items.append((read_index, al, seq, qual))
-
-    cut_items = [(seq, al) for (_, al, seq, _) in items
-                 if al.anchors is not None and al.anchors[0].shape[0]]
-    cuts = window_cut_native.window_cut_batch(
-        cut_items, contigs, WINDOW_LEN, overlap.ALIGN_L, _NW_MAX_M,
-        n_threads=n_threads) if cut_items else []
-    _t_cut = time.perf_counter()
-
-    ci = 0
-    for (read_index, al, seq, qual) in items:
-        if al.anchors is None or al.anchors[0].shape[0] == 0:
-            continue
-        fq_a, lq_a, ft_a, lt_a, dropped = cuts[ci]
-        ci += 1
-        for _ in range(dropped):
-            log.warning("window cut DP span exceeds %d (inconsistent "
-                        "anchors); fragment dropped", _NW_MAX_M)
-        identity = al.identity
-        pool = window_seqs[al.contig_index]
-        for fq, lq, ft, lt in zip(fq_a.tolist(), lq_a.tolist(),
-                                  ft_a.tolist(), lt_a.tolist()):
-            wid = ft // WINDOW_LEN
-            if wid >= len(pool):
-                continue
-            if active is not None and not active[al.contig_index][wid]:
-                continue
-            frag_seq = seq[fq:lq]
-            if qual is not None:
-                frag_q = qual[fq:lq]
-                q_sum = int(frag_q.sum(dtype=np.int64))
-                avg_q = q_sum / (lq - fq) - 33.0
-                if avg_q < QUALITY_THRESHOLD:
+        # filtered (read, alignment) work list, oracle iteration order
+        items = []
+        for read_index, als in all_alignments.items():
+            _, seq, qual = read_map[read_index]
+            for al in als:
+                if al.contig_index not in contigs:
                     continue
-                hash_val = int((frag_seq.astype(np.int64) * frag_q).sum())
-                frag_qual = frag_q.tobytes()
-            else:
-                hash_val = int(frag_seq.sum(dtype=np.int64))
-                frag_qual = None
-            ws = wid * WINDOW_LEN
-            index_window(pool[wid],
-                         Window(frag_seq.tobytes(), frag_qual, ft - ws,
-                                lt - ws - 1, identity, hash_val=hash_val))
+                contig_len = contigs[al.contig_index].shape[0]
+                if al.contig_start >= contig_len:
+                    continue
+                al.contig_end = min(al.contig_end, contig_len)
+                if al.identity < 0.9:
+                    continue
+                items.append((read_index, al, seq, qual))
 
-    _t_index = time.perf_counter()
-    # POA per window (batched through the native engine)
-    batch = []
-    keys = []
-    results: dict = {}
-    with threadmap.packing("poa"):
-        for cid, contig_windows in window_seqs.items():
-            seq = contigs[cid]
-            for wid, windows in enumerate(contig_windows):
+        cut_items = [(seq, al) for (_, al, seq, _) in items
+                     if al.anchors is not None and al.anchors[0].shape[0]]
+        cuts = window_cut_native.window_cut_batch(
+            cut_items, contigs, WINDOW_LEN, overlap.ALIGN_L, _NW_MAX_M,
+            n_threads=n_threads) if cut_items else []
+        s_cut.add("alignments", len(cut_items))
+
+    with spans.span("polish.index") as s_index:
+        ci = 0
+        for (read_index, al, seq, qual) in items:
+            if al.anchors is None or al.anchors[0].shape[0] == 0:
+                continue
+            fq_a, lq_a, ft_a, lt_a, dropped = cuts[ci]
+            ci += 1
+            for _ in range(dropped):
+                log.warning("window cut DP span exceeds %d (inconsistent "
+                            "anchors); fragment dropped", _NW_MAX_M)
+            identity = al.identity
+            pool = window_seqs[al.contig_index]
+            for fq, lq, ft, lt in zip(fq_a.tolist(), lq_a.tolist(),
+                                      ft_a.tolist(), lt_a.tolist()):
+                wid = ft // WINDOW_LEN
+                if wid >= len(pool):
+                    continue
+                if active is not None and not active[al.contig_index][wid]:
+                    continue
+                frag_seq = seq[fq:lq]
+                if qual is not None:
+                    frag_q = qual[fq:lq]
+                    q_sum = int(frag_q.sum(dtype=np.int64))
+                    avg_q = q_sum / (lq - fq) - 33.0
+                    if avg_q < QUALITY_THRESHOLD:
+                        continue
+                    hash_val = int((frag_seq.astype(np.int64) * frag_q).sum())
+                    frag_qual = frag_q.tobytes()
+                else:
+                    hash_val = int(frag_seq.sum(dtype=np.int64))
+                    frag_qual = None
                 ws = wid * WINDOW_LEN
-                we = min(seq.shape[0], ws + WINDOW_LEN)
-                backbone = seq[ws:we].tobytes()
-                if active is not None and not active[cid][wid]:
-                    results[(cid, wid)] = backbone
-                    continue
-                if len(windows) < 2:
-                    results[(cid, wid)] = backbone
-                    continue
-                windows.sort(key=lambda w: (w.pos_start, w.hash()))
-                frags = [(w.seq, w.qual, w.pos_start, w.pos_end)
-                         for w in windows]
-                batch.append((backbone, frags))
-                keys.append((cid, wid, len(windows),
-                             wid == len(contig_windows) - 1))
+                index_window(pool[wid],
+                             Window(frag_seq.tobytes(), frag_qual, ft - ws,
+                                    lt - ws - 1, identity,
+                                    hash_val=hash_val))
+        if spans.recording():
+            s_index.add("fragments", sum(
+                len(w) for pool in window_seqs.values() for w in pool))
 
-    if batch:
-        for (cid, wid, nseq, is_last), (cons, covs) in zip(
-                keys, polish_windows_distributed(batch, n_threads=n_threads,
-                                                 group=group)):
-            results[(cid, wid)] = trim_consensus(cons, covs, nseq, is_last)
-    _t_poa = time.perf_counter()
+    with spans.span("polish.poa") as s_poa:
+        # POA per window (batched through the native engine)
+        batch = []
+        keys = []
+        results: dict = {}
+        with threadmap.packing("poa"):
+            for cid, contig_windows in window_seqs.items():
+                seq = contigs[cid]
+                for wid, windows in enumerate(contig_windows):
+                    ws = wid * WINDOW_LEN
+                    we = min(seq.shape[0], ws + WINDOW_LEN)
+                    backbone = seq[ws:we].tobytes()
+                    if active is not None and not active[cid][wid]:
+                        results[(cid, wid)] = backbone
+                        continue
+                    if len(windows) < 2:
+                        results[(cid, wid)] = backbone
+                        continue
+                    windows.sort(key=lambda w: (w.pos_start, w.hash()))
+                    frags = [(w.seq, w.qual, w.pos_start, w.pos_end)
+                             for w in windows]
+                    batch.append((backbone, frags))
+                    keys.append((cid, wid, len(windows),
+                                 wid == len(contig_windows) - 1))
+
+        if batch:
+            for (cid, wid, nseq, is_last), (cons, covs) in zip(
+                    keys, polish_windows_distributed(
+                        batch, n_threads=n_threads, group=group)):
+                results[(cid, wid)] = trim_consensus(cons, covs, nseq,
+                                                     is_last)
+        s_poa.add("windows", len(batch))
+        s_poa.add("threads", n_threads)
 
     # reassemble + validate (dumpCorrectedContig, hpp:2744-2868)
-    out_contigs: dict = {}
-    out_headers: dict = {}
-    header_strings: dict = {}
-    changed: dict = {}
-    for cid, contig_windows in window_seqs.items():
-        seq = contigs[cid]
-        parts = []
-        out_off = 0
-        cid_changed = []
-        for wid in range(len(contig_windows)):
-            part = results[(cid, wid)]
-            ws = wid * WINDOW_LEN
-            backbone = seq[ws:min(seq.shape[0], ws + WINDOW_LEN)].tobytes()
-            if part != backbone:
-                cid_changed.append((out_off, out_off + len(part)))
-            parts.append(part)
-            out_off += len(part)
-        contig_seq = b"".join(parts)
-        length = len(contig_seq)
-        coverage = contig_coverages.get(cid, 0.0)
-        passthrough = (active is not None and not active[cid].any())
-        if not passthrough:
-            if coverage <= min_contig_coverage:
-                continue
-            if length < min_contig_length:
-                continue
-            if length < 7500 and coverage < 4:
-                continue
-        orig_index, is_circular = headers[cid]
-        out_contigs[cid] = np.frombuffer(contig_seq, np.uint8)
-        out_headers[cid] = (orig_index, is_circular)
-        if cid_changed:
-            changed[cid] = cid_changed
-        if final_headers:
-            circ = "yes" if is_circular else "no"
-            header_strings[cid] = (f"ctg{orig_index} length={length} "
-                                   f"coverage={coverage:.2f} circular={circ}")
-    pack = {name: threadmap.pack_seconds.get(name, 0.0)
-            - pack0.get(name, 0.0) for name in ("map", "cut", "poa")}
+    with spans.span("polish.stitch") as s_stitch:
+        out_contigs: dict = {}
+        out_headers: dict = {}
+        header_strings: dict = {}
+        changed: dict = {}
+        for cid, contig_windows in window_seqs.items():
+            seq = contigs[cid]
+            parts = []
+            out_off = 0
+            cid_changed = []
+            for wid in range(len(contig_windows)):
+                part = results[(cid, wid)]
+                ws = wid * WINDOW_LEN
+                backbone = seq[ws:min(seq.shape[0],
+                                      ws + WINDOW_LEN)].tobytes()
+                if part != backbone:
+                    cid_changed.append((out_off, out_off + len(part)))
+                parts.append(part)
+                out_off += len(part)
+            contig_seq = b"".join(parts)
+            length = len(contig_seq)
+            coverage = contig_coverages.get(cid, 0.0)
+            passthrough = (active is not None and not active[cid].any())
+            if not passthrough:
+                if coverage <= min_contig_coverage:
+                    continue
+                if length < min_contig_length:
+                    continue
+                if length < 7500 and coverage < 4:
+                    continue
+            orig_index, is_circular = headers[cid]
+            out_contigs[cid] = np.frombuffer(contig_seq, np.uint8)
+            out_headers[cid] = (orig_index, is_circular)
+            if cid_changed:
+                changed[cid] = cid_changed
+            if final_headers:
+                circ = "yes" if is_circular else "no"
+                header_strings[cid] = (f"ctg{orig_index} length={length} "
+                                       f"coverage={coverage:.2f} "
+                                       f"circular={circ}")
+        s_stitch.add("contigs", len(out_contigs))
+    pack_poa = s_poa.counts.get("pack.poa", 0.0)
     log.info("  polish pass timing: map %.1fs (pack %.1fs) cut %.1fs "
              "(pack %.1fs) index %.1fs pack %.1fs poa %.1fs stitch %.1fs "
              "(%d windows, %d fragments, %d threads)",
-             _t_map - _t0, pack["map"], _t_cut - _t_map, pack["cut"],
-             _t_index - _t_cut, pack["poa"],
-             _t_poa - _t_index - pack["poa"], time.perf_counter() - _t_poa,
-             len(batch), len(items), n_threads)
+             s_map.seconds, s_map.counts.get("pack.map", 0.0),
+             s_cut.seconds, s_cut.counts.get("pack.cut", 0.0),
+             s_index.seconds, pack_poa, s_poa.seconds - pack_poa,
+             s_stitch.seconds, len(batch), len(items), n_threads)
     return (out_contigs, out_headers, contig_coverages, header_strings,
             changed)

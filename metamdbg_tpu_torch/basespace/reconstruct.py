@@ -23,11 +23,11 @@ subcommand's drafts.
 import logging
 import os
 import struct
-import time
 
 import numpy as np
 
 from ..io import fastq, records
+from ..utils import spans
 from . import derep as derep_mod
 from . import partition as partition_mod
 from . import polisher as polisher_mod
@@ -67,7 +67,19 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
                      min_contig_coverage: float = 1.0, n_threads: int = 1,
                      group=None):
     """With `group` (two or more ranks), the polish passes' window POAs
-    fan out over the ranks (parallel/polish_mesh.py)."""
+    fan out over the ranks (parallel/polish_mesh.py). Runs in a root span
+    `tobasespace`, its phases in spans below it (utils/spans.py)."""
+    with spans.span("tobasespace", rss=True) as root:
+        n_out = _to_basespace(root, out_dir, read_paths, output_contig_file,
+                              params, device, min_contig_length,
+                              min_contig_coverage, n_threads, group)
+        root.add("contigs", n_out)
+    return n_out
+
+
+def _to_basespace(root, out_dir, read_paths, output_contig_file, params,
+                  device, min_contig_length, min_contig_coverage, n_threads,
+                  group):
     contig_file = os.path.join(out_dir, "contig_data_init_small.txt.norepeats")
     aln_file = os.path.join(out_dir, "readsVsContigsAlignments.bin")
     partition_dir = os.path.join(out_dir, "_polish_readPartitions")
@@ -75,23 +87,31 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
     avg_dist = float(1.0 / np.float32(params.density_assembly))
 
     log.info("  Aligning reads vs contigs")
-    raw_alignments = map_reads_to_contigs(
-        os.path.join(out_dir, "read_data_init.txt"), contig_file, aln_file,
-        avg_dist, device)
-    alignments = [tiling.Mapping(t) for t in raw_alignments]
+    with spans.span("tobasespace.map", rss=True):
+        raw_alignments = map_reads_to_contigs(
+            os.path.join(out_dir, "read_data_init.txt"), contig_file,
+            aln_file, avg_dist, device)
+        alignments = [tiling.Mapping(t) for t in raw_alignments]
 
-    contigs = [(i, np.asarray(rec.minimizers, np.uint32), rec.is_circular)
-               for i, rec in enumerate(
-                   records.read_read_data(contig_file, with_quality=False))]
+    with spans.span("tobasespace.partition", rss=True) as s:
+        contigs = [(i, np.asarray(rec.minimizers, np.uint32),
+                    rec.is_circular)
+                   for i, rec in enumerate(
+                       records.read_read_data(contig_file,
+                                              with_quality=False))]
 
-    log.info("  Partitioning reads (%d contigs, %d alignments)",
-             len(contigs), len(alignments))
-    partitionner = partition_mod.Partitionner(contigs, alignments, avg_dist)
-    partition_mod.write_read_partitions(
-        partitionner, fastq.iter_reads(read_paths), partition_dir,
-        use_qual=True)
-    partition_mod.write_contig_partitions(partitionner, contigs,
-                                          partition_dir)
+        log.info("  Partitioning reads (%d contigs, %d alignments)",
+                 len(contigs), len(alignments))
+        partitionner = partition_mod.Partitionner(contigs, alignments,
+                                                  avg_dist)
+        partition_mod.write_read_partitions(
+            partitionner, fastq.iter_reads(read_paths), partition_dir,
+            use_qual=True)
+        partition_mod.write_contig_partitions(partitionner, contigs,
+                                              partition_dir)
+        s.add("reads", len(partitionner.read_to_contig))
+    root.add("alignments", len(alignments))
+    root.add("partitions", partitionner.nb_partitions)
 
     per_contig_alignments: dict = {}
     for al in alignments:
@@ -114,49 +134,56 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
         read_file = os.path.join(partition_dir, f"{pi}_reads.bin")
         bin_file = os.path.join(partition_dir, f"{pi}_contigs.bin")
 
-        reads: dict = {}
-        quals: dict = {}
-        for idx, seq, qual in partition_mod.read_read_partition(read_file):
-            reads[idx] = seq
-            quals[idx] = qual
+        with spans.span("tobasespace.load", rss=True) as s:
+            reads: dict = {}
+            quals: dict = {}
+            for idx, seq, qual in partition_mod.read_read_partition(
+                    read_file):
+                reads[idx] = seq
+                quals[idx] = qual
+            s.add("reads", len(reads))
 
-        t0 = time.perf_counter()
-        tiler = tiling.ContigTiler(reads, avg_dist, min_contig_length,
-                                   device, n_threads)
+        with spans.span("tobasespace.tile", rss=True) as tile:
+            tiler = tiling.ContigTiler(reads, avg_dist, min_contig_length,
+                                       device, n_threads)
 
-        # draft contigs via verified read tiling
-        partition_contigs: dict = {}
-        partition_headers: dict = {}
-        partition_reads: list = []
-        seen_reads = set()
-        for (cid, minimizers, is_circular) in \
-                partition_mod.read_contig_partition(bin_file):
-            als = [al for al in per_contig_alignments.get(cid, [])
-                   if al.read_index in reads]
-            pieces, coverage = tiling.create_base_contig(
-                tiler, minimizers, is_circular, als)
-            for (seq, circ, mins, read_path) in pieces:
-                ci = global_contig_index
-                global_contig_index += 1
-                partition_contigs[ci] = seq
-                partition_headers[ci] = (ci, circ)
-                checksum_total += int(
-                    (seq.astype(np.uint64) * seq.shape[0] * cid).sum()
-                    & 0xFFFFFFFFFFFFFFFF)
-                final_min.write(struct.pack("<IB", len(mins),
-                                            1 if circ else 0))
-                final_min.write(np.asarray(mins, np.uint32).tobytes())
-                for r in read_path:
-                    if r in seen_reads:
-                        continue
-                    seen_reads.add(r)
-                    used_reads[r] = reads[r]
-                    used_read_sketches[r] = tiler.sketch_of(r)
-                    used_read_file.write(b">read_%d\n" % r)
-                    used_read_file.write(reads[r].tobytes() + b"\n")
+            # draft contigs via verified read tiling
+            partition_contigs: dict = {}
+            partition_headers: dict = {}
+            partition_reads: list = []
+            seen_reads = set()
+            for (cid, minimizers, is_circular) in \
+                    partition_mod.read_contig_partition(bin_file):
+                als = [al for al in per_contig_alignments.get(cid, [])
+                       if al.read_index in reads]
+                pieces, coverage = tiling.create_base_contig(
+                    tiler, minimizers, is_circular, als)
+                with spans.span("tobasespace.used_reads") as s:
+                    n_seen = len(seen_reads)
+                    for (seq, circ, mins, read_path) in pieces:
+                        ci = global_contig_index
+                        global_contig_index += 1
+                        partition_contigs[ci] = seq
+                        partition_headers[ci] = (ci, circ)
+                        checksum_total += int(
+                            (seq.astype(np.uint64) * seq.shape[0] * cid)
+                            .sum() & 0xFFFFFFFFFFFFFFFF)
+                        final_min.write(struct.pack("<IB", len(mins),
+                                                    1 if circ else 0))
+                        final_min.write(np.asarray(mins, np.uint32)
+                                        .tobytes())
+                        for r in read_path:
+                            if r in seen_reads:
+                                continue
+                            seen_reads.add(r)
+                            used_reads[r] = reads[r]
+                            used_read_sketches[r] = tiler.sketch_of(r)
+                            used_read_file.write(b">read_%d\n" % r)
+                            used_read_file.write(reads[r].tobytes() + b"\n")
+                    s.add("reads", len(seen_reads) - n_seen)
 
         log.info("  partition %d tiling: %.1fs (%d draft contigs)", pi,
-                 time.perf_counter() - t0, len(partition_contigs))
+                 tile.seconds, len(partition_contigs))
         if not partition_contigs:
             continue
 
@@ -176,11 +203,13 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
         cov1: dict = {}
         changed: dict = {}
         for p in range(max(n_passes, 1)):
-            c1, h1, cov1, _, changed = polisher_mod.polish_pass(
-                c1, h1, partition_reads, min_contig_length,
-                min_contig_coverage, final_headers=(p == n_passes - 1),
-                device=device, n_threads=n_threads, read_sketches=sketches,
-                group=group)
+            with spans.span("polish", rss=True) as s:
+                s.add("pass", p)
+                c1, h1, cov1, _, changed = polisher_mod.polish_pass(
+                    c1, h1, partition_reads, min_contig_length,
+                    min_contig_coverage, final_headers=(p == n_passes - 1),
+                    device=device, n_threads=n_threads,
+                    read_sketches=sketches, group=group)
         if refine and changed:
             margin = polisher_mod.WINDOW_LEN
             if params.data_type == 1:
@@ -199,11 +228,14 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
             log.info("  Polish refinement: %d contigs, %d active regions",
                      len(restrict),
                      sum(len(v) for v in restrict.values()))
-            c1, h1, cov_r, _, _ = polisher_mod.polish_pass(
-                c1, h1, partition_reads, min_contig_length,
-                min_contig_coverage, final_headers=True, device=device,
-                n_threads=n_threads, read_sketches=sketches,
-                restrict=restrict, group=group)
+            with spans.span("polish", rss=True) as s:
+                s.add("pass", max(n_passes, 1))
+                s.add("restricted", 1)
+                c1, h1, cov_r, _, _ = polisher_mod.polish_pass(
+                    c1, h1, partition_reads, min_contig_length,
+                    min_contig_coverage, final_headers=True, device=device,
+                    n_threads=n_threads, read_sketches=sketches,
+                    restrict=restrict, group=group)
             cov1.update(cov_r)
         for cid in c1:
             polished_contigs[cid] = c1[cid]
@@ -215,23 +247,29 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
     log.info("  Checksum curated contigs: %d", checksum_total)
 
     log.info("  Dereplicating contigs")
-    derep_contigs = derep_mod.dereplicate_contigs(
-        polished_contigs, polished_coverages, polished_headers,
-        min_contig_length, device)
+    with spans.span("tobasespace.derep", rss=True) as s:
+        derep_contigs = derep_mod.dereplicate_contigs(
+            polished_contigs, polished_coverages, polished_headers,
+            min_contig_length, device)
+        s.add("contigs", len(derep_contigs))
 
     log.info("  Trimming contigs")
-    trimmed = derep_mod.trim_contigs(derep_contigs, polished_headers,
-                                     used_reads, min_contig_length, device,
-                                     read_sketches=used_read_sketches)
+    with spans.span("tobasespace.trim", rss=True) as s:
+        trimmed = derep_mod.trim_contigs(derep_contigs, polished_headers,
+                                         used_reads, min_contig_length,
+                                         device,
+                                         read_sketches=used_read_sketches)
+        s.add("contigs", len(trimmed))
 
-    out_records = []
-    for cid in sorted(trimmed):
-        seq = trimmed[cid]
-        orig_index, is_circular = polished_headers[cid]
-        coverage = polished_coverages.get(cid, 0.0)
-        circ = "yes" if is_circular else "no"
-        header = (f"ctg{orig_index} length={seq.shape[0]} "
-                  f"coverage={coverage:.2f} circular={circ}")
-        out_records.append((header, bytes(seq)))
-    fastq.write_fasta(output_contig_file, out_records)
+    with spans.span("tobasespace.write", rss=True):
+        out_records = []
+        for cid in sorted(trimmed):
+            seq = trimmed[cid]
+            orig_index, is_circular = polished_headers[cid]
+            coverage = polished_coverages.get(cid, 0.0)
+            circ = "yes" if is_circular else "no"
+            header = (f"ctg{orig_index} length={seq.shape[0]} "
+                      f"coverage={coverage:.2f} circular={circ}")
+            out_records.append((header, bytes(seq)))
+        fastq.write_fasta(output_contig_file, out_records)
     return len(out_records)

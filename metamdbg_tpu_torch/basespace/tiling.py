@@ -29,6 +29,7 @@ interpreter lock, run for every read where the walk checks a few.
 import numpy as np
 
 from ..sketch import kmers as _kmers
+from ..utils import spans
 from . import overlap, overlap_native
 
 MIN_OVERLAP = 500          # ToBasespace2::_minOverlap
@@ -93,13 +94,18 @@ class ContigTiler:
     # -- read-vs-read overlaps (computeAlignment role) ----------------------
     def pair_alignments(self, r1: int, r2: int):
         key = (r1, r2)
+        spans.add("pair_calls")
         hit = self._pair_cache.get(key)
         if hit is None:
-            hit = overlap.overlap_pair(
-                self.sketch_of(r1), self.reads[r1].shape[0],
-                self.sketch_of(r2), self.reads[r2].shape[0],
-                min_span=MIN_OVERLAP, t_index=self.index_of(r1))
+            s1, s2 = self.sketch_of(r1), self.sketch_of(r2)
+            t_index = self.index_of(r1)
+            with spans.timed("pair_s"):
+                hit = overlap.overlap_pair(
+                    s1, self.reads[r1].shape[0], s2, self.reads[r2].shape[0],
+                    min_span=MIN_OVERLAP, t_index=t_index)
             self._pair_cache[key] = hit
+        else:
+            spans.add("pair_cache_hits")
         return hit
 
     def clear_contig_caches(self):
@@ -112,8 +118,10 @@ class ContigTiler:
         used_coverage = 10
         a1 = alignments[ii]
         r1 = a1.read_index
+        spans.add("erroneous_calls")
         cached = self._erroneous_cache.get(r1)
         if cached is not None:
+            spans.add("erroneous_cache_hits")
             return cached
         read1 = self.reads[r1]
         t_len = read1.shape[0]
@@ -127,7 +135,9 @@ class ContigTiler:
             if a2.contig_start > a1.contig_end:
                 break  # reference truncates at the first non-overlapper
             sel2.append(a2)
-        for bl in self._pair_overlaps_batch(r1, s1, t_len, sel2):
+        with spans.timed("erroneous_s"):
+            overlaps = self._pair_overlaps_batch(r1, s1, t_len, sel2)
+        for bl in overlaps:
             if not bl:
                 continue
             best = max(bl, key=lambda b: b.align_length())
@@ -338,6 +348,7 @@ def get_best_successor(tiler: ContigTiler, alignments, i, read_index1,
                 readindex_to_i[r2], alignments, contig_coverage):
             continue
         used_alignments[(read_index1, r2)] = best
+        spans.add("successors_accepted")
         return a2
     return None
 
@@ -601,10 +612,12 @@ def read_paths_to_contigs(tiler: ContigTiler, contig_minimizers,
             is_repetitive = True
             if nb_iters > 1000:
                 break
+        spans.add("repeat_trims", nb_iters)
         if is_invalid or seq.shape[0] < tiler.min_contig_length:
             continue
 
         if is_repetitive:
+            spans.add("self_overlap_calls")
             self_olap = compute_self_overlap(seq, tiler.device)
             if self_olap > 0:
                 seq = seq[:seq.shape[0] - self_olap]
@@ -621,36 +634,45 @@ def create_base_contig(tiler: ContigTiler, contig_minimizers, is_circular,
     """CreateBaseContigsFunctor::operator() (hpp:1698-1971) for one contig.
     alignments_in: list of Mapping. Returns (pieces, contig_coverage) where
     pieces comes from read_paths_to_contigs."""
-    if not alignments_in:
-        return [], 0.0
-    tiler.clear_contig_caches()
+    with spans.span("tiling", rss=True) as s:
+        s.add("alignments", len(alignments_in))
+        if not alignments_in:
+            return [], 0.0
+        tiler.clear_contig_caches()
 
-    n = len(contig_minimizers)
-    depth = np.zeros(max(n, 1), np.int64)
-    max_contig_end = 0
-    for al in alignments_in:
-        depth[al.contig_start: min(al.contig_end, n)] += 1
-        max_contig_end = max(max_contig_end, al.contig_end)
-    contig_coverage = float(depth[:n].sum() / max(n, 1))
-    if contig_coverage <= 1:
-        return [], contig_coverage
+        n = len(contig_minimizers)
+        depth = np.zeros(max(n, 1), np.int64)
+        max_contig_end = 0
+        for al in alignments_in:
+            depth[al.contig_start: min(al.contig_end, n)] += 1
+            max_contig_end = max(max_contig_end, al.contig_end)
+        contig_coverage = float(depth[:n].sum() / max(n, 1))
+        s.add("coverage", contig_coverage)
+        if contig_coverage <= 1:
+            return [], contig_coverage
 
-    alignments = sorted(alignments_in, key=lambda a: (
-        a.contig_start, a.contig_end, a.read_index))
-    readindex_to_i = {a.read_index: i for i, a in enumerate(alignments)}
-    readindex_to_al = {a.read_index: a for a in alignments}
+        alignments = sorted(alignments_in, key=lambda a: (
+            a.contig_start, a.contig_end, a.read_index))
+        readindex_to_i = {a.read_index: i for i, a in enumerate(alignments)}
+        readindex_to_al = {a.read_index: a for a in alignments}
 
-    tiler.prewarm_sketches([a.read_index for a in alignments])
+        with spans.span("tiling.sketch") as sketch:
+            tiler.prewarm_sketches([a.read_index for a in alignments])
+            sketch.add("reads", len(alignments))
 
-    read_paths = []
-    used_alignments: dict = {}
-    while True:
-        if not get_path(tiler, read_paths, alignments, readindex_to_al,
-                        readindex_to_i, used_alignments, contig_coverage,
-                        max_contig_end):
-            break
+        read_paths = []
+        used_alignments: dict = {}
+        with spans.span("tiling.walk"):
+            while True:
+                if not get_path(tiler, read_paths, alignments,
+                                readindex_to_al, readindex_to_i,
+                                used_alignments, contig_coverage,
+                                max_contig_end):
+                    break
 
-    pieces = read_paths_to_contigs(
-        tiler, contig_minimizers, is_circular, contig_coverage, read_paths,
-        used_alignments, readindex_to_al)
-    return pieces, contig_coverage
+        with spans.span("tiling.contigs") as pieces_span:
+            pieces = read_paths_to_contigs(
+                tiler, contig_minimizers, is_circular, contig_coverage,
+                read_paths, used_alignments, readindex_to_al)
+            pieces_span.add("pieces", len(pieces))
+        return pieces, contig_coverage

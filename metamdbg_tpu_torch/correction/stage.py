@@ -22,7 +22,6 @@ import dataclasses
 import heapq
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -31,7 +30,7 @@ from ..constants import CONTIG_LINEAR
 from ..io import fastq, records
 from ..sketch import batch, read_selection
 from ..sketch.palindrome import purge_palindrome
-from ..utils import threadmap
+from ..utils import spans
 from ..utils.hashing import minimizer_is_selected
 from . import mapper, poa_native
 
@@ -123,89 +122,96 @@ def run_read_correction(tmp_dir: str, params: records.Parameters, device,
                         group=None):
     """The whole stage in `tmp_dir`; returns the correction checksum.
     With `group` (two or more ranks), the mapper's joins run sharded."""
-    t0 = time.perf_counter()
-    stats = records.ReadStats.load(os.path.join(tmp_dir, "read_stats.txt"))
-    reads = list(records.read_read_data(
-        os.path.join(tmp_dir, "read_data_init.txt"), with_quality=True))
-    with open(os.path.join(tmp_dir, "input.txt")) as f:
-        input_paths = [line.strip() for line in f if line.strip()]
-    repetitive = np.sort(records.load_repetitive_minimizers(
-        os.path.join(tmp_dir, "repetitiveMinimizers.bin")))
+    with spans.span("correction.map") as s_map:
+        stats = records.ReadStats.load(os.path.join(tmp_dir,
+                                                    "read_stats.txt"))
+        reads = list(records.read_read_data(
+            os.path.join(tmp_dir, "read_data_init.txt"), with_quality=True))
+        with open(os.path.join(tmp_dir, "input.txt")) as f:
+            input_paths = [line.strip() for line in f if line.strip()]
+        repetitive = np.sort(records.load_repetitive_minimizers(
+            os.path.join(tmp_dir, "repetitiveMinimizers.bin")))
 
-    max_memory = compute_max_memory(stats.nb_bases)
-    memory_per_read = int(np.float32(np.float32(stats.mean_length)
-                                     * np.float32(params.density_correction))
-                          * np.float32(MEMORY_PER_MINIMIZER))
-    memory_per_read = max(memory_per_read, 500)
+        max_memory = compute_max_memory(stats.nb_bases)
+        memory_per_read = int(np.float32(
+            np.float32(stats.mean_length)
+            * np.float32(params.density_correction))
+            * np.float32(MEMORY_PER_MINIMIZER))
+        memory_per_read = max(memory_per_read, 500)
 
-    mem_low = np.longdouble(stats.nb_minimizers) * MINIMIZER_POSITION_BYTES
-    nb_passes = np.ceil(mem_low / np.longdouble(max_memory))
-    nb_passes = min(max(nb_passes, np.longdouble(1)), np.longdouble(10))
-    chunk_size = int(np.longdouble(stats.nb_minimizers) / nb_passes) + 10
+        mem_low = np.longdouble(stats.nb_minimizers) \
+            * MINIMIZER_POSITION_BYTES
+        nb_passes = np.ceil(mem_low / np.longdouble(max_memory))
+        nb_passes = min(max(nb_passes, np.longdouble(1)),
+                        np.longdouble(10))
+        chunk_size = int(np.longdouble(stats.nb_minimizers) / nb_passes) + 10
 
-    band = int(np.float32(2500) * np.float32(params.density_correction))
+        band = int(np.float32(2500) * np.float32(params.density_correction))
 
-    alignments = mapper.run_read_mapper(
-        reads, chunk_size, band, device,
-        alignment_path=os.path.join(tmp_dir, "readAlignmentsLowDensity.bin"),
-        group=group)
-
-    t_map = time.perf_counter()
+        alignments = mapper.run_read_mapper(
+            reads, chunk_size, band, device,
+            alignment_path=os.path.join(tmp_dir,
+                                        "readAlignmentsLowDensity.bin"),
+            group=group)
+        s_map.add("reads", len(reads))
 
     # ---- partitioning (ReadCorrection.hpp:1965-1994, 4519-4713) ----
-    align_lists = [alignments.get(i, np.zeros(0, np.uint32)).tolist()
-                   for i in range(stats.nb_reads)]
-    partitions = None
-    pass_no = 0
-    memory_increased = int(max_memory * 0.33)
-    cur_memory = max_memory
-    while True:
-        partitions, nb_written = partition_reads(align_lists, cur_memory,
-                                                 memory_per_read)
-        density = stats.nb_reads / nb_written if nb_written else 1.0
-        if density > 0.15:
-            break
-        pass_no += 1
-        cur_memory += memory_increased
-        if pass_no > 10:
-            break
+    with spans.span("correction.partition") as s_part:
+        align_lists = [alignments.get(i, np.zeros(0, np.uint32)).tolist()
+                       for i in range(stats.nb_reads)]
+        partitions = None
+        pass_no = 0
+        memory_increased = int(max_memory * 0.33)
+        cur_memory = max_memory
+        while True:
+            partitions, nb_written = partition_reads(align_lists, cur_memory,
+                                                     memory_per_read)
+            density = stats.nb_reads / nb_written if nb_written else 1.0
+            if density > 0.15:
+                break
+            pass_no += 1
+            cur_memory += memory_increased
+            if pass_no > 10:
+                break
 
-    log.info("correction partitions: %d (max memory %.2f GB)",
-             len(partitions), float(cur_memory) / 1e9)
-    t_part = time.perf_counter()
+        log.info("correction partitions: %d (max memory %.2f GB)",
+                 len(partitions), float(cur_memory) / 1e9)
+        n_alignments = sum(len(a) for a in align_lists)
+        s_part.add("alignments", n_alignments)
+        s_part.add("partitions", len(partitions))
 
     # ---- correction (on re-sketched correction-density reads) ----
-    high_reads = sketch_high_density_reads(input_paths, params, repetitive,
-                                           device)
-    buffers = poa_native.ReadSetBuffers(high_reads)
-    t_sketch = time.perf_counter()
+    with spans.span("correction.sketch") as s_sketch:
+        high_reads = sketch_high_density_reads(input_paths, params,
+                                               repetitive, device)
+        buffers = poa_native.ReadSetBuffers(high_reads)
+        s_sketch.add("reads", len(high_reads))
 
     checksum = 0
-    t_poa = 0.0
-    pack0 = threadmap.pack_seconds.get("correction", 0.0)
     out_path = os.path.join(tmp_dir, "read_data_corrected.txt")
-    with records.ReadDataWriter(out_path, with_quality=False) as writer:
+    with spans.span("correction.correct") as s_correct, \
+            records.ReadDataWriter(out_path, with_quality=False) as writer:
         for (to_load, to_correct) in partitions:
             correct_set = set(to_correct)
             work = [ri for ri in sorted(set(to_load)) if ri in correct_set]
-            t = time.perf_counter()
-            outs = poa_native.correct_reads_batch(
-                buffers, work, align_lists, params, min_identity,
-                min_overlap_length, band, max(n_threads, 1))
-            t_poa += time.perf_counter() - t
+            with spans.timed("poa_s"):
+                outs = poa_native.correct_reads_batch(
+                    buffers, work, align_lists, params, min_identity,
+                    min_overlap_length, band, max(n_threads, 1))
+            s_correct.add("reads", len(work))
             for read_index, mins in zip(work, outs):
                 checksum = _write_read(writer, read_index, mins, params,
                                        checksum)
     # determinism oracle: the reference logs the same per-stage checksum
     # (ReadCorrection.hpp:1982-1986 area)
     log.info("Correction checksum: %d", checksum)
-    pack = threadmap.pack_seconds.get("correction", 0.0) - pack0
+    pack = s_correct.counts.get("pack.correction", 0.0)
+    poa = s_correct.counts.get("poa_s", 0.0)
     log.info("correction timing: map %.1fs partition %.1fs sketch %.1fs "
              "pack %.1fs poa %.1fs write %.1fs (%d reads, %d alignments, "
              "%d threads)",
-             t_map - t0, t_part - t_map, t_sketch - t_part, pack,
-             t_poa - pack, time.perf_counter() - t_sketch - t_poa,
-             len(reads), sum(len(a) for a in align_lists),
+             s_map.seconds, s_part.seconds, s_sketch.seconds, pack,
+             poa - pack, s_correct.seconds - poa, len(reads), n_alignments,
              max(n_threads, 1))
     return checksum
 

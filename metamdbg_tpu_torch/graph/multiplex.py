@@ -19,7 +19,6 @@ import collections
 import logging
 import os
 import struct
-import time
 
 import numpy as np
 import torch
@@ -29,6 +28,7 @@ from ..count.kminmers import PairTable, flat_window_hashes, pair_heads, \
 from ..count.refined import overlay_refined
 from ..io import records
 from ..kernels import window_hash
+from ..utils import spans
 from . import gio
 from .filter_graph import FilterGraph, FilterNode, rc
 
@@ -94,23 +94,24 @@ class MultiplexPass:
         self._memo: dict = {}               # window bytes -> abundance or 0
         self.sequences: list = []           # unitigName -> minimizer seq
         self.graph: FilterGraph | None = None
-        self.phase_seconds: dict = {}
 
     # ------------------------------------------------------------------
     def run(self):
-        """The pass; `phase_seconds` keeps each phase's host-clock wall (the
-        device work of a phase ends in the host syncs inside it)."""
+        """The pass, each phase in a span `multiplex.<phase>` (the device
+        work of a phase ends in the host syncs inside it)."""
+        seconds = {}
         for name, phase in (("count", self._count_kminmers),
                             ("load", self._load_prev_graph),
                             ("edges", self._solve_edges),
                             ("unsupported", self._remove_unsupported),
                             ("small", self._solve_small_unitigs),
                             ("write", self._write_unitigs)):
-            t0 = time.perf_counter()
-            phase()
-            self.phase_seconds[name] = time.perf_counter() - t0
+            with spans.span("multiplex." + name) as s:
+                s.add("k", self.k)
+                phase()
+            seconds[name] = s.seconds
         log.debug("multiplex k=%d phases: %s", self.k, " ".join(
-            f"{n} {t:.3f}s" for n, t in self.phase_seconds.items()))
+            f"{n} {t:.3f}s" for n, t in seconds.items()))
 
     # ------------------------------------------------------------------
     def _refined_nodes(self):

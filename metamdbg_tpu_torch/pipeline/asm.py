@@ -21,7 +21,10 @@ device, the route of each stage ("port:<device>"), and for each kernel
 row counts on the card likewise; the sketch kernel's also counts its
 overflow relaunches and the tile batches; and the group of ranks: rank,
 world size, transport, and for each stage that ran sharded what each
-sharded function did there (parallel/__init__.py's counters).
+sharded function did there (parallel/__init__.py's counters). The run,
+each stage and the steps inside are spans (utils/spans.py): the stage
+walls above and the timing lines of the log read them, and under
+`torch.profiler` or `asm --trace-out` they keep records.
 
 Run as N ranks (METAMDBG_TPU_DISTRIBUTED and the variables of
 parallel/__init__.py, an --out-dir per rank), `run` starts the group
@@ -54,19 +57,11 @@ from ..kernels import count as kcount
 from ..kernels import sketch as ksketch
 from ..kernels import window_hash
 from ..sketch import batch, read_selection
-from ..utils import threadmap
+from ..utils import spans, threadmap
+from ..utils.spans import status_kb as _status_kb
 from . import open_device
 
 log = logging.getLogger("metamdbg_tpu_torch")
-
-
-def _status_kb(field: str):
-    """A `kB` field of /proc/self/status, or None where it has none."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith(field + ":"):
-                return int(line.split()[1])
-    return None
 
 
 # where /proc/self/status has no VmHWM: the highest VmRSS read so far
@@ -167,7 +162,8 @@ class Pipeline:
         self.chain_launches: dict = {}
         self.chain_dp_launches: dict = {}
         self.row_count_launches: dict = {}
-        self.multiplex_phase_seconds: dict = {}  # summed over the passes
+        # the multiplex passes' phase spans' seconds, summed over the passes
+        self.multiplex_phase_seconds: dict = {}
         self.sharded: dict = {}
         self.group = None
         self.reads_cache = multiplex.ReadsCache()
@@ -182,21 +178,29 @@ class Pipeline:
     # -- perf accounting and provenance (src/Commons.hpp:2918-2938) ---------
     @contextlib.contextmanager
     def _stage(self, name: str):
+        """The stage in a span `stage.<name>`, which carries its kernel
+        launches as counts."""
         route = f"port:{self.device.type}"
-        t0 = time.time()
-        kernels = ((self.sketch_launches, ksketch),
-                   (self.window_hash_launches, window_hash),
-                   (self.chain_launches, kchain),
-                   (self.chain_dp_launches, kchain_dp),
-                   (self.row_count_launches, kcount))
-        before = [k.launches for _, k in kernels]
+        kernels = (("sketch", self.sketch_launches, ksketch),
+                   ("window_hash", self.window_hash_launches, window_hash),
+                   ("chain", self.chain_launches, kchain),
+                   ("chain_dp", self.chain_dp_launches, kchain_dp),
+                   ("row_count", self.row_count_launches, kcount))
+        before = [k.launches for _, _, k in kernels]
         before_sharded = {n: dict(c) for n, c in parallel.activity.items()}
-        with threadmap.stage_pool(self.n_threads):
-            yield
-        dt = time.time() - t0
-        for (counts, k), n0 in zip(kernels, before):
-            if k.launches > n0:
-                counts[name] = k.launches - n0
+        with spans.span("stage." + name, rss=True) as s:
+            with threadmap.stage_pool(self.n_threads):
+                yield
+            for (label, counts, k), n0 in zip(kernels, before):
+                if k.launches > n0:
+                    counts[name] = k.launches - n0
+                    s.add("launches." + label, k.launches - n0)
+        dt = s.seconds
+        for key, seconds in s.counts.items():
+            if key.startswith("multiplex."):
+                phase = key[len("multiplex."):]
+                self.multiplex_phase_seconds[phase] = \
+                    self.multiplex_phase_seconds.get(phase, 0) + seconds
         for fn, after in parallel.activity.items():
             prev = before_sharded.get(fn, {})
             if after["calls"] > prev.get("calls", 0):
@@ -272,7 +276,12 @@ class Pipeline:
 
     # -- stages -------------------------------------------------------------
     def run(self):
-        t0 = time.time()
+        """The whole asm, in a root span `asm`."""
+        with spans.span("asm") as total:
+            self._run()
+        self._log_final_summary(total.seconds)
+
+    def _run(self):
         # ranks find each other before anything else (as the JAX package's
         # devwarm.start_warmup -> parallel.ensure_distributed)
         self.device = parallel.ensure_distributed(self.device)
@@ -332,12 +341,9 @@ class Pipeline:
                         stage.run_graph_second_pass(self.tmp_dir, k, params,
                                                     self.device)
                     else:
-                        mp = multiplex.run_graph_multiplex_pass(
+                        multiplex.run_graph_multiplex_pass(
                             self.tmp_dir, k, params, self.device,
                             self.reads_cache)
-                        for name, dt in mp.phase_seconds.items():
-                            self.multiplex_phase_seconds[name] = \
-                                self.multiplex_phase_seconds.get(name, 0) + dt
                 self._mark(f"k{k}_createGraph")
 
             # AssemblyPipeline.hpp:492,834: --all-assembly-graph forces a
@@ -386,9 +392,6 @@ class Pipeline:
         self._run_final_stages(params)
         if not os.environ.get("METAMDBG_TPU_KEEP_TMP"):
             self._clean_tmp_files()
-
-        dt = time.time() - t0
-        self._log_final_summary(dt)
 
     def _clean_tmp_files(self):
         """End-of-run tmp cleanup (cleanTmpAssemblyFiles + cleanTmpFiles,

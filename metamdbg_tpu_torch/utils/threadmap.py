@@ -22,22 +22,23 @@ that live for the stage reuse them across every call of the stage, and
 the memory goes back when the stage ends and its threads exit. A map
 outside any stage opens a pool for its own call.
 
-`packing(name)` sums the seconds a wrapper spends packing its batch in
-Python (serial, under the interpreter lock) into `pack_seconds[name]`;
-the stages log them beside the engines' walls.
+`packing(name)` adds the seconds a wrapper spends packing its batch in
+Python (serial, under the interpreter lock) to the count `pack.<name>` of
+the caller's innermost span (utils/spans.py); the stages log them beside
+the engines' walls. Spans opened in a worker have the span that started
+the map as their parent.
 """
 
 import concurrent.futures
 import contextlib
 import threading
-import time
+
+from . import spans
 
 # ranges per thread: enough for dynamic scheduling to even out items of
 # very different cost (one long POA window among short ones)
 RANGES_PER_THREAD = 8
 
-pack_seconds: dict = {}
-_pack_lock = threading.Lock()
 _stage: list = []            # the open stage pool, innermost last
 _local = threading.local()   # .in_worker: this thread is running a map
 
@@ -69,15 +70,8 @@ def stage_pool(n_threads: int):
             _stage.pop()
 
 
-@contextlib.contextmanager
-def packing(name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _pack_lock:
-            pack_seconds[name] = pack_seconds.get(name, 0.0) + dt
+def packing(name: str) -> spans.timed:
+    return spans.timed("pack." + name)
 
 
 def thread_map(fn, items, n_threads: int):
@@ -92,16 +86,18 @@ def thread_map(fn, items, n_threads: int):
     counter = iter(range(len(items)))
     counter_lock = threading.Lock()
     failed = threading.Event()
+    parent = spans.current()
 
     def work():
         _local.in_worker = True
         try:
-            while not failed.is_set():
-                with counter_lock:
-                    i = next(counter, None)
-                if i is None:
-                    return
-                out[i] = fn(items[i])
+            with spans.inherited(parent):
+                while not failed.is_set():
+                    with counter_lock:
+                        i = next(counter, None)
+                    if i is None:
+                        return
+                    out[i] = fn(items[i])
         except BaseException:
             failed.set()
             raise

@@ -29,7 +29,7 @@ from metamdbg_tpu.correction import poa_native as j_corr
 from metamdbg_tpu_torch.basespace import overlap, overlap_native, polisher
 from metamdbg_tpu_torch.basespace import poa_native, window_cut_native
 from metamdbg_tpu_torch.correction import poa_native as corr_native
-from metamdbg_tpu_torch.utils import threadmap
+from metamdbg_tpu_torch.utils import spans, threadmap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -74,27 +74,37 @@ def test_thread_map_raises_a_workers_exception_without_a_retry():
 def test_thread_map_under_fast_switching():
     """More workers than cores, a switch every microsecond: every item is
     computed once, none lost or repeated (the shared counter and the
-    packing clock hold their locks)."""
+    packing clock hold their locks): the workers add to the span that
+    started the map, recording under torch.profiler, one count an item
+    and their packing seconds, and no update is lost."""
     seen = []
-    before = threadmap.pack_seconds.get("stress", 0.0)
+    packed = [0.0] * 20000
 
     def fn(i):
+        t0 = time.time_ns()
         with threadmap.packing("stress"):
             seen.append(i)
+        packed[i] = (time.time_ns() - t0) / 1e9
+        spans.add("items")
         return i
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         t0 = time.perf_counter()
-        out = threadmap.thread_map(fn, range(20000),
-                                   4 * (os.cpu_count() or 1))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]), \
+                spans.span("stress") as s:
+            out = threadmap.thread_map(fn, range(20000),
+                                       4 * (os.cpu_count() or 1))
         assert time.perf_counter() - t0 < 60
     finally:
         sys.setswitchinterval(interval)
     assert out == list(range(20000))
     assert sorted(seen) == list(range(20000))
-    assert threadmap.pack_seconds["stress"] > before
+    assert s.counts["items"] == 20000
+    # each block lies inside the worker's own clock reads around it
+    assert 0 < s.counts["pack.stress"] <= sum(packed) + 1e-6
 
 
 def test_nested_map_runs_inline_in_a_stage_pool():

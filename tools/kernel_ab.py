@@ -35,7 +35,9 @@ segment, on the stream widened to int64 and a start per window.
    package refused) four times, parent, current, current, parent, each
    through its own package's entry point under torch.profiler: the asm
    wall, the ladder (k*_createGraph + k*_generateContigs, and each) and
-   each phase of the multiplex passes summed (MultiplexPass.phase_seconds),
+   each phase of the multiplex passes summed (the `multiplex.<phase>`
+   spans of utils/spans.py, or MultiplexPass.phase_seconds in a package
+   older than the spans),
    the host clock in the `flat_window_hashes` and `PairTable.lookup`
    calls of their phases after the count,
    the device's busy time and idle share, KW's launches and device time;
@@ -333,13 +335,25 @@ def asm_run(work, dev, fq, pkg, tag, record):
     kw, ksketch, kchain = (importlib.import_module(f"{pkg}.kernels.{m}")
                            for m in ("window_hash", "sketch", "chain"))
     mplex = importlib.import_module(f"{pkg}.graph.multiplex")
+    try:
+        spans = importlib.import_module(f"{pkg}.utils.spans")
+    except ImportError:
+        spans = None
     phases, passes = {}, []
     real_run = mplex.MultiplexPass.run
 
     def run(self):
-        real_run(self)
+        if spans is None:
+            real_run(self)
+            seconds = self.phase_seconds
+        else:
+            with spans.span("kernel_ab.pass") as s:
+                real_run(self)
+            seconds = {key.split(".", 1)[1]: dt
+                       for key, dt in s.counts.items()
+                       if key.startswith("multiplex.")}
         passes.append(self.k)
-        for name, dt in self.phase_seconds.items():
+        for name, dt in seconds.items():
             phases[name] = phases.get(name, 0.0) + dt
 
     # the host clock inside the window hashes and table lookups of the
