@@ -61,6 +61,17 @@ def reconstruct_unpolished(minimizers, is_circular, alignments, read_seqs,
     return np.concatenate([p[0] for p in pieces])
 
 
+def _covered(intervals, length: int) -> int:
+    """The bases of [0, length) that the (start, end) intervals cover."""
+    total, reach = 0, 0
+    for lo, hi in sorted(intervals):
+        lo, hi = max(lo, reach), min(hi, length)
+        if hi > lo:
+            total += hi - lo
+            reach = hi
+    return total
+
+
 def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
                      params: records.Parameters, device,
                      min_contig_length: int = 50,
@@ -68,7 +79,10 @@ def run_to_basespace(out_dir: str, read_paths, output_contig_file: str,
                      group=None):
     """With `group` (two or more ranks), the polish passes' window POAs
     fan out over the ranks (parallel/polish_mesh.py). Runs in a root span
-    `tobasespace`, its phases in spans below it (utils/spans.py)."""
+    `tobasespace`, its phases in spans below it (utils/spans.py). The
+    refinement's `polish` span counts the `contigs`, `regions` and `bases`
+    it re-polishes, and `whole` where it re-polishes changed contigs whole
+    (ONT); the root counts the `polished_bases` it could have."""
     with spans.span("tobasespace", rss=True) as root:
         n_out = _to_basespace(root, out_dir, read_paths, output_contig_file,
                               params, device, min_contig_length,
@@ -210,6 +224,8 @@ def _to_basespace(root, out_dir, read_paths, output_contig_file, params,
                     min_contig_coverage, final_headers=(p == n_passes - 1),
                     device=device, n_threads=n_threads,
                     read_sketches=sketches, group=group)
+        # what the refinement could re-polish: every contig of the passes
+        root.add("polished_bases", sum(int(c.shape[0]) for c in c1.values()))
         if refine and changed:
             margin = polisher_mod.WINDOW_LEN
             if params.data_type == 1:
@@ -231,6 +247,12 @@ def _to_basespace(root, out_dir, read_paths, output_contig_file, params,
             with spans.span("polish", rss=True) as s:
                 s.add("pass", max(n_passes, 1))
                 s.add("restricted", 1)
+                s.add("contigs", len(restrict))
+                s.add("regions", sum(len(v) for v in restrict.values()))
+                s.add("bases", sum(_covered(ivals, c1[cid].shape[0])
+                                   for cid, ivals in restrict.items()
+                                   if cid in c1))
+                s.add("whole", int(params.data_type == 1))
                 c1, h1, cov_r, _, _ = polisher_mod.polish_pass(
                     c1, h1, partition_reads, min_contig_length,
                     min_contig_coverage, final_headers=True, device=device,

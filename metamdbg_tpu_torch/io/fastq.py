@@ -14,6 +14,7 @@ import threading
 
 import numpy as np
 
+from ..utils import spans
 from . import native
 
 
@@ -27,9 +28,11 @@ class Read:
 def iter_reads(paths, max_reads: int | None = None):
     """Yields Read records. The native zlib decode (which releases the GIL)
     runs on a producer thread feeding a 2-deep queue, so decoding overlaps
-    the consumer's compute."""
+    the consumer's compute. Its seconds go to the count `decode` of the
+    span open where the first read was asked for (utils/spans.py)."""
     q: queue.Queue = queue.Queue(maxsize=2)
     stop = threading.Event()
+    parent = spans.current()
 
     def _put(item) -> bool:
         while not stop.is_set():
@@ -42,9 +45,15 @@ def iter_reads(paths, max_reads: int | None = None):
 
     def _produce():
         try:
-            for item in native.iter_read_batches(paths):
-                if not _put(item):
-                    return
+            with spans.inherited(parent):
+                batches = native.iter_read_batches(paths)
+                while True:
+                    with spans.timed("decode"):
+                        item = next(batches, None)
+                    if item is None:
+                        break
+                    if not _put(item):
+                        return
             _put(None)
         except BaseException as exc:  # surfaced to the consumer
             _put(exc)

@@ -13,7 +13,11 @@ src/graph/GenerateGfa.hpp:366) is applied on read-local window indices, and
 then the repetitive-minimizer blacklist (the selected set is ~density *
 bases, so both are cheap).
 
-`tile_batches` counts the batches sent to the sketcher.
+`tile_batches` counts the batches sent to the sketcher. While spans
+record (utils/spans.py), each launch adds the inputs of its bound to the
+innermost open span: `k1_launches`, `k1_rows`, `k1_row_len` (the padded
+row length), `k1_windows` (rows x windows a row) and `k1_cap` (the
+compacted slots a row), each summed over the span's launches.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ import torch
 
 from ..constants import MINIMIZER_DTYPE
 from ..kernels import sketch as ksketch
+from ..utils import spans
 
 TILE_LEN = 16384       # bases per row
 TILE_ROWS = 512        # rows per kernel launch (8 Mbp)
@@ -96,6 +101,12 @@ class BatchSketcher:
             batch = torch.from_numpy(tiles[s: s + TILE_ROWS]).to(self.device)
             res = ksketch.sketch_tiles(batch, self.l, self.density, cap)
             tile_batches += 1
+            if spans.recording():
+                n = batch.shape[0]
+                for key, v in (("k1_launches", 1), ("k1_rows", n),
+                               ("k1_row_len", TILE_LEN),
+                               ("k1_windows", n * nk), ("k1_cap", cap)):
+                    spans.add(key, v)
             counts = res.counts.cpu().numpy()
             positions = res.positions.cpu().numpy()
             values = res.values.cpu().numpy()

@@ -12,6 +12,12 @@ metamdbg_tpu/sketch/read_selection.py.
 Sketching always runs on `device` through the sketch kernel
 (sketch/batch.py -> kernels/sketch.py); the ONT blacklist pass at
 correction density uses the same kernel.
+
+The stage runs in a span `readselection` (utils/spans.py) with its
+`reads`, `bases` and `minimizers`, and the fastq decode's seconds as
+`decode`; below it `readselection.repeats` (the blacklist pass), per chunk
+of reads `readselection.sketch` (K1, with each launch's bound inputs),
+`.filters` and `.write`, and `readselection.palindromes`.
 """
 
 import os
@@ -27,6 +33,7 @@ from ..constants import (
     compute_last_k,
 )
 from ..io import fastq, records
+from ..utils import spans
 from ..utils.stats import compute_mean_length, compute_n50
 from . import batch, filters, kmers, native_sketch, palindrome, rle
 
@@ -94,14 +101,27 @@ def determine_repetitive_minimizers(input_paths, out_path: str, l: int,
 def run_read_selection(input_paths, out_dir: str, params: records.Parameters,
                        device, min_read_quality: float = 0.0,
                        skip_correction: bool = False) -> records.ReadStats:
-    """Full stage on `device` ("cuda" or "cpu"); returns the ReadStats."""
+    """Full stage on `device` ("cuda" or "cpu"); returns the ReadStats.
+    Runs in a root span `readselection`, its phases in spans below it."""
+    with spans.span("readselection", rss=True) as root:
+        stats = _read_selection(input_paths, out_dir, params, device,
+                                min_read_quality, skip_correction)
+        root.add("reads", stats.nb_reads)
+        root.add("bases", stats.nb_bases)
+        root.add("minimizers", stats.nb_minimizers)
+    return stats
+
+
+def _read_selection(input_paths, out_dir, params, device, min_read_quality,
+                    skip_correction):
     l = params.minimizer_size
     density = params.density_assembly
     use_hpc = params.use_homopolymer_compression
 
-    repetitive = determine_repetitive_minimizers(
-        input_paths, os.path.join(out_dir, "repetitiveMinimizers.bin"),
-        l, params.density_correction, use_hpc, device)
+    with spans.span("readselection.repeats"):
+        repetitive = determine_repetitive_minimizers(
+            input_paths, os.path.join(out_dir, "repetitiveMinimizers.bin"),
+            l, params.density_correction, use_hpc, device)
 
     out_path = os.path.join(out_dir, "read_data_init.txt")
     all_read_sizes = []
@@ -116,32 +136,36 @@ def run_read_selection(input_paths, out_dir: str, params: records.Parameters,
     empty_u8 = np.zeros(0, np.uint8)
     with records.ReadDataWriter(out_path, with_quality=True) as writer:
         for chunk in chunked(fastq.iter_reads(input_paths), CHUNK_READS):
-            sketched = sketch_chunk(sketcher, chunk, use_hpc)
-            complexity, mean_quality = native_sketch.read_filters_batch(
-                [r.seq for r in chunk], [r.qual for r in chunk],
-                COMPLEXITY_WINDOW, COMPLEXITY_STEP, filters._QUAL_TABLE)
-            for ri, (read, (mins, pos, dirs, rle_pos)) in enumerate(
-                    zip(chunk, sketched)):
-                mean_q = float(mean_quality[ri])
-                # NaN compares False: reads without a complete window or
-                # without qualities are kept
-                if float(complexity[ri]) > COMPLEXITY_MAX_SCORE or \
-                        mean_q < min_read_quality:
-                    mins, pos, dirs = empty_u32, empty_u32, empty_u8
-                if not mean_q < min_read_quality:
-                    quality_sum += np.longdouble(mean_q)
-                    quality_n += 1
+            with spans.span("readselection.sketch") as s:
+                sketched = sketch_chunk(sketcher, chunk, use_hpc)
+                s.add("reads", len(chunk))
+            with spans.span("readselection.filters"):
+                complexity, mean_quality = native_sketch.read_filters_batch(
+                    [r.seq for r in chunk], [r.qual for r in chunk],
+                    COMPLEXITY_WINDOW, COMPLEXITY_STEP, filters._QUAL_TABLE)
+            with spans.span("readselection.write"):
+                for ri, (read, (mins, pos, dirs, rle_pos)) in enumerate(
+                        zip(chunk, sketched)):
+                    mean_q = float(mean_quality[ri])
+                    # NaN compares False: reads without a complete window
+                    # or without qualities are kept
+                    if float(complexity[ri]) > COMPLEXITY_MAX_SCORE or \
+                            mean_q < min_read_quality:
+                        mins, pos, dirs = empty_u32, empty_u32, empty_u8
+                    if not mean_q < min_read_quality:
+                        quality_sum += np.longdouble(mean_q)
+                        quality_n += 1
 
-                quals = filters.minimizer_min_qualities(read.qual, rle_pos,
-                                                        pos, l)
-                writer.write(records.MinimizerRead(
-                    read.index, mins, pos, dirs, quals, mean_q,
-                    read.seq.shape[0]))
+                    quals = filters.minimizer_min_qualities(
+                        read.qual, rle_pos, pos, l)
+                    writer.write(records.MinimizerRead(
+                        read.index, mins, pos, dirs, quals, mean_q,
+                        read.seq.shape[0]))
 
-                all_read_sizes.append(read.seq.shape[0])
-                nb_minimizers += mins.shape[0]
-                nb_kmers += read.seq.shape[0] - l + 1
-                nb_bases += read.seq.shape[0]
+                    all_read_sizes.append(read.seq.shape[0])
+                    nb_minimizers += mins.shape[0]
+                    nb_kmers += read.seq.shape[0] - l + 1
+                    nb_bases += read.seq.shape[0]
 
     sizes = np.asarray(all_read_sizes, dtype=np.uint32)
     stats = records.ReadStats(
@@ -159,9 +183,11 @@ def run_read_selection(input_paths, out_dir: str, params: records.Parameters,
     stats.save(os.path.join(out_dir, "read_stats.txt"))
 
     if use_hpc or skip_correction:
-        purge_palindromes(out_path,
-                          os.path.join(out_dir, "read_data_corrected.txt"),
-                          params, stats.n50)
+        with spans.span("readselection.palindromes"):
+            purge_palindromes(out_path,
+                              os.path.join(out_dir,
+                                           "read_data_corrected.txt"),
+                              params, stats.n50)
     return stats
 
 

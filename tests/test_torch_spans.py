@@ -4,15 +4,18 @@ Outside a torch.profiler session a span keeps no record and still times
 itself; inside one it records, in a thread_map worker too, with its
 start on the profiler's clock; parent, root and counts hold under
 thread_map at a switch every microsecond; the Chrome trace writer and
-`asm --trace-out`; and toBasespace on a small sample: its span tree and
+`asm --trace-out`; toBasespace on a small sample: its span tree and
 counts, the timing lines that read them, and the same contigs with
-recording on and off.
+recording on and off; read selection's spans, its K1 launches' counts
+and the fastq decode's seconds, HiFi and ONT; and the refinement's
+counts on an ONT sample against its log line.
 """
 
 import gzip
 import json
 import logging
 import os
+import re
 import sys
 import threading
 import time
@@ -26,15 +29,19 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 import datagen
 from metamdbg_tpu_torch.__main__ import main as port_main
+from metamdbg_tpu_torch.kernels import sketch as ksketch
 from metamdbg_tpu_torch.basespace import reconstruct
 from metamdbg_tpu_torch.constants import compute_last_k
 from metamdbg_tpu_torch.io import records
 from metamdbg_tpu_torch.pipeline import asm
 from metamdbg_tpu_torch.sketch import read_selection
+from metamdbg_tpu_torch.sketch.batch import TILE_LEN
 from metamdbg_tpu_torch.utils import spans, threadmap
+from portbench import gen
 
 CPU = torch.device("cpu")
 NOREPEATS = "contig_data_init_small.txt.norepeats"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def recording_session():
@@ -315,3 +322,158 @@ def test_to_basespace_spans(sample, tmp_path, caplog):
 
     # recording changes no output
     assert _to_basespace(sample, str(tmp_path / "plain"), False) == traced
+
+
+# -- read selection and the refinement ----------------------------------------
+
+def ont_config(genome_mb: float) -> dict:
+    """The benchmark's ONT configuration, its first genome cut to
+    `genome_mb`."""
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "ont_d6331.json")) as f:
+        cfg = json.load(f)
+    cfg["strains"][0]["genome_mb"] = genome_mb
+    return cfg
+
+
+ONT_SELECTION = records.Parameters(kminmer_size=4,
+                                   use_homopolymer_compression=False,
+                                   data_type=1)
+
+
+@pytest.fixture(scope="module")
+def ont_sample(tmp_path_factory):
+    """A 100 kb genome's reads at 4x under the `ont_d6331` read model
+    (portbench/gen.py), their read selection without homopolymer
+    compression, the genome sketched like the reads as the
+    minimizer-space contig, and ONT parameters for toBasespace."""
+    d = tmp_path_factory.mktemp("ont_sample")
+    fq = str(d / "reads.fastq.gz")
+    genome, _ = gen.write_sample(fq, ont_config(0.1), 2**35 + 3, 0, 0, 0.4)
+    g = d / "genome"
+    g.mkdir()
+    gfq = str(g / "genome.fastq.gz")
+    datagen.write_fastq(gfq, [("genome", genome,
+                               np.full(genome.shape, ord("I"), np.uint8))])
+    stats = read_selection.run_read_selection([fq], str(d), ONT_SELECTION,
+                                              "cpu")
+    read_selection.run_read_selection([gfq], str(g), ONT_SELECTION, "cpu",
+                                      skip_correction=True)
+    with records.ReadDataWriter(str(d / NOREPEATS), with_quality=False) as w:
+        for i, rec in enumerate(records.read_read_data(
+                str(g / "read_data_init.txt"), with_quality=True)):
+            w.write(records.MinimizerRead(i, rec.minimizers, None, None,
+                                          None))
+    k = compute_last_k(ONT_SELECTION.density_assembly, stats.n50, 4, 0)
+    spacing = 1 / np.float32(ONT_SELECTION.density_assembly)
+    params = records.Parameters(
+        kminmer_size=k, minimizer_spacing_mean=float(spacing),
+        kminmer_length_mean=float(spacing * np.float32(k - 1)),
+        kminmer_overlap_mean=float(spacing * np.float32(k - 1) - spacing),
+        kminmer_size_prev=k - 1, kminmer_size_last=k,
+        mean_read_length=stats.n50, use_homopolymer_compression=False,
+        data_type=1)
+    return fq, str(d), params
+
+
+def _select(fq, out, params, traced, skip_correction):
+    """The port's read selection of `fq` into `out`: (stats, the files'
+    bytes)."""
+    os.makedirs(out)
+    if traced:
+        with recording_session():
+            stats = read_selection.run_read_selection(
+                [fq], out, params, "cpu", skip_correction=skip_correction)
+    else:
+        stats = read_selection.run_read_selection(
+            [fq], out, params, "cpu", skip_correction=skip_correction)
+    return stats, {f: open(os.path.join(out, f), "rb").read()
+                   for f in sorted(os.listdir(out))}
+
+
+@pytest.mark.parametrize("platform", ["hifi", "ont"])
+def test_read_selection_spans(platform, sample, ont_sample, tmp_path):
+    """The `readselection` root and its phases, its counts against the
+    stage's own stats, each K1 launch's bound inputs on the span that
+    launched it, and the decode's seconds on the span that read."""
+    hifi = platform == "hifi"
+    fq = (sample if hifi else ont_sample)[0]
+    params = records.Parameters(kminmer_size=4) if hifi else ONT_SELECTION
+    t0 = time.time_ns()
+    stats, _ = _select(fq, str(tmp_path / "rs"), params, True, hifi)
+    recs = recorded_since(t0)
+    (root,) = [r for r in recs if r.name == "readselection"]
+    assert root.parent is None and root.rss_kb[1] > 0
+    assert {r.name for r in recs if r.parent == root.id} == {
+        "readselection.repeats", "readselection.sketch",
+        "readselection.filters", "readselection.write"} | (
+            {"readselection.palindromes"} if hifi else set())
+    assert all(r.root == root.id for r in recs)
+    assert (root.counts["reads"], root.counts["bases"],
+            root.counts["minimizers"]) == (stats.nb_reads, stats.nb_bases,
+                                           stats.nb_minimizers)
+    assert 0 < root.counts["decode"] < root.seconds
+    sketches = [r for r in recs if r.name == "readselection.sketch"]
+    assert sum(r.counts["reads"] for r in sketches) == stats.nb_reads
+    (repeats,) = [r for r in recs if r.name == "readselection.repeats"]
+    launched = sketches + ([] if hifi else [repeats])
+    if hifi:
+        # homopolymer compression on: no blacklist pass, no launch
+        assert "k1_launches" not in repeats.counts
+    else:
+        assert 0 < repeats.counts["decode"] < repeats.seconds
+    for r, density in zip(launched, [params.density_assembly] * len(
+            sketches) + [params.density_correction]):
+        c = r.counts
+        n, nk = c["k1_launches"], TILE_LEN - params.minimizer_size + 1
+        assert n >= 1 and c["k1_row_len"] == n * TILE_LEN
+        assert c["k1_windows"] == c["k1_rows"] * nk
+        assert c["k1_cap"] == n * ksketch.compact_cap(nk, density)
+
+
+def test_the_refinement_counts_match_its_log_line(ont_sample, tmp_path,
+                                                  caplog):
+    """ONT: the refinement's `polish` span counts the contigs and regions
+    its log line gives, re-polishes changed contigs whole (one region a
+    contig, `whole` 1), and its bases are at most the bases its root
+    counts as polished."""
+    fq, d, params = ont_sample
+    work = str(tmp_path / "tb")
+    os.makedirs(work)
+    for name in ("read_data_init.txt", NOREPEATS):
+        os.symlink(os.path.join(d, name), os.path.join(work, name))
+    t0 = time.time_ns()
+    with caplog.at_level(logging.INFO, logger="metamdbg_tpu_torch"):
+        with threadmap.stage_pool(2), recording_session():
+            reconstruct.run_to_basespace(
+                work, [fq], os.path.join(work, "contigs.fasta.gz"), params,
+                CPU, n_threads=2)
+    logged = [tuple(int(x) for x in re.findall(r"(\d+) (?:contigs|active)",
+                                               m))
+              for m in caplog.messages if "Polish refinement" in m]
+    recs = recorded_since(t0)
+    (root,) = [r for r in recs if r.name == "tobasespace"]
+    refines = [r for r in recs if r.name == "polish"
+               and r.counts.get("restricted")]
+    assert logged and len(refines) == len(logged)
+    for r, (contigs, regions) in zip(refines, logged):
+        assert (r.counts["contigs"], r.counts["regions"]) == (contigs,
+                                                              regions)
+        assert r.counts["whole"] == 1 and regions == contigs
+    assert 0 < sum(r.counts["bases"] for r in refines) \
+        <= root.counts["polished_bases"]
+
+
+def test_with_recording_off_read_selection_keeps_nothing(ont_sample,
+                                                         tmp_path):
+    """Outside a profiler session read selection keeps no record, and it
+    writes the same files as with recording on."""
+    fq = ont_sample[0]
+    n0 = len(spans.records())
+    plain = _select(fq, str(tmp_path / "plain"), ONT_SELECTION, False,
+                    False)
+    assert len(spans.records()) == n0
+    traced = _select(fq, str(tmp_path / "traced"), ONT_SELECTION, True,
+                     False)
+    assert len(spans.records()) > n0
+    assert plain[1] == traced[1] and plain[0] == traced[0]
